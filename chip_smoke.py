@@ -1,0 +1,675 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port's main path on one NVIDIA card.
+
+Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments:
+the full-size run, one card). It
+
+  1. prints the card's name and power limit (``nvidia-smi``);
+  2. builds the port's four CUDA kernels from ``src/repro_torch/csrc`` with
+     ``nvcc`` (one process per source, all at once; set-up time);
+  3. drives the main path with every launch counter at 0: builds a
+     ``RangeGraphIndex`` on the card over ``vector_dataset`` data (n = 1M,
+     d = 128, 64 clusters, uniform attributes, seed 0; ``BuildConfig(m=16,
+     ef_construction=64)``), then answers 1,000 ``make_workload("mixed")``
+     queries through ``index.search`` (k=10, ef=64, W=4) with the fused hop
+     kernel, with the composed hop, and with the fused hop at ef=256;
+     reads the counts and fails if a kernel of the path never launched;
+  4. checks the answers against an exact in-range top-10 (plain torch on
+     the card): fused and composed ids identical; each fused search's
+     recall@10 within 0.01 of the same search with every op pinned to
+     plain torch; recall@10 >= 0.70 for the workload at ef=256 and for
+     queries drawn around the data's own centres at ef=64 (see
+     MIN_RECALL), and prints why wide ranges lose recall;
+  5. holds every kernel against its plain version on the card at the main
+     path's shapes (integers equal; distances within 1e-5 of the magnitude
+     of their terms, ``‖q‖² + ‖x‖²``, since both sum d products in another
+     order; prune rows may differ only at near-tie keep decisions,
+     ``|alpha*cc - du| <= 1e-5*du``, in under 0.1% of rows) and times
+     kernel, plain version and bound with CUDA events;
+  6. builds n = 131,072 twice, with the kernels and all-plain, and holds
+     the tables and their search recall against each other;
+  7. prints one JSON line of kernel records and, last, the device line.
+
+It exits non-zero, printing no result, when there is no CUDA card, when
+the repo's sources are not beside it, or when any phase fails.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+# the H100 SXM's published peaks (NVIDIA data sheet, at 700 W)
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_F32_FLOPS = 67e12
+
+BUILD_CHUNK = 32768       # nodes per build step on the card
+DIST_RTOL = 1e-5          # distances: relative to ‖q‖² + ‖x‖²
+PRUNE_TIE_RTOL = 1e-5     # prune: a keep decision within this of du
+PRUNE_MAX_DIFF = 1e-3     # prune: share of rows allowed to differ
+# The search quality gate: recall@10 >= MIN_RECALL. make_workload draws
+# its queries around other centres than the data's, so their true top-10
+# are tail points of two or three clusters and wide ranges are hard: at
+# ef = 64 the workload reaches 0.585 at n = 1M on every path, kernel and
+# plain alike. The gate reads the workload at ef = QUALITY_EF, and queries
+# drawn around the data's own centres over the same ranges at ef = 64.
+MIN_RECALL = 0.70
+QUALITY_EF = 256
+WITNESS_N = 131072        # the kernel-vs-plain build witness's size
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip()
+
+
+def time_ms(torch, fn, iters=20, warmup=3):
+    """Mean ms per call of ``fn(i)`` by CUDA events (``i`` = call index,
+    so a call that updates its inputs in place can take a fresh copy)."""
+    for i in range(warmup):
+        fn(i)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(warmup + i)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+    tb = nbytes / PEAK_BYTES_PER_S * 1e3
+    tf = flops / PEAK_F32_FLOPS * 1e3
+    return (tb, "bytes") if tb >= tf else (tf, "operations")
+
+
+def dist_err(torch, got, want, qq, xx):
+    """Max |got - want| over finite slots, and whether it is within
+    DIST_RTOL of the expansion's term magnitude; +inf masks must agree."""
+    if not torch.equal(torch.isfinite(got), torch.isfinite(want)):
+        return math.inf, False
+    fin = torch.isfinite(want)
+    if not bool(fin.any()):
+        return 0.0, True
+    err = (got - want).abs()[fin]
+    tol = DIST_RTOL * (qq.expand_as(want)[fin] + xx[fin])
+    return float(err.max()), bool((err <= tol).all())
+
+
+def edge_positions_needed(torch, nbrs, us, L, R, logn, out):
+    """Per frontier row, how many of its K packed edge ids the selection
+    must read: through the m_out-th emitted id when the row fills, else
+    through the first fully covered layer; 0 for inactive rows."""
+    from repro_torch.core import segment_tree
+    from repro_torch.kernels import ref
+
+    F = us.shape[0]
+    n, layers, m = nbrs.shape
+    K = layers * m
+    flat = nbrs[us.clamp(0, n - 1)].reshape(F, K)
+    lay = torch.div(torch.arange(K, device=us.device, dtype=torch.int32), m,
+                    rounding_mode="floor")[None, :]
+    valid = ref.edge_scan_valid(flat, us[:, None], L[:, None], R[:, None],
+                                lay, logn=logn)
+    last = out[:, -1]
+    hit = valid & (flat == last[:, None])
+    pos_last = hit.int().argmax(dim=1)
+    u = us.clamp_min(0)[:, None]
+    lays = torch.arange(layers, device=us.device, dtype=torch.int32)[None, :]
+    lo, hi = segment_tree.seg_bounds(u, lays, logn)
+    terminal = (lo >= L[:, None]) & (hi <= R[:, None])
+    ft = torch.where(terminal.any(1), terminal.int().argmax(1), 0)
+    needed = torch.where(last >= 0, pos_last + 1, (ft + 1) * m)
+    return int(torch.where(us >= 0, needed, 0).sum())
+
+
+def prune_near_tie(torch, ids, du, vecs, m, alpha, fill):
+    """Replay the plain prune of one row in f64 and report whether any
+    keep decision is a near tie, |alpha*cc - du| <= PRUNE_TIE_RTOL*du."""
+    from repro_torch.kernels import ref
+
+    ids, du, vecs = ids[None], du[None], vecs[None]
+    C = ids.shape[1]
+    v64 = vecs.double()
+    xx = (v64 * v64).sum(-1)[0]
+    kept = ref.prune_vecs(ids, du, vecs, m=m, alpha=alpha, fill=fill)[0]
+    for kid in kept.tolist():
+        if kid < 0:
+            break
+        p = int((ids[0] == kid).nonzero()[0, 0])
+        cc = (xx - 2.0 * (v64[0] @ v64[0, p]) + xx[p]).clamp_min(0.0)
+        d = du[0].double()
+        live = torch.isfinite(d) & (ids[0] >= 0)
+        gap = (alpha * cc - d).abs()
+        if bool((live & (gap <= PRUNE_TIE_RTOL * d.abs())).any()):
+            return True
+    return C == 0
+
+
+def cross_cluster_share(torch, index, lab) -> list:
+    """Per layer, the share of its edges that join two clusters (``lab``:
+    the cluster of each rank, on the index's device)."""
+    nb = index.neighbors.long()
+    out = []
+    for lay in range(nb.shape[1] - 1):             # the leaves hold no edges
+        e = nb[:, lay, :]
+        live = e >= 0
+        joins = live & (lab[e.clamp_min(0)] != lab[:, None])
+        out.append(round(float(joins.sum()) / max(int(live.sum()), 1), 4))
+    return out
+
+
+def recall_by_entry(torch, index, lab_np, L, R, gt, ids, frac) -> dict:
+    """Recall@10 by range fraction 2^-i, split by whether an entry point
+    lies in the cluster of the query's true nearest neighbour ("hit") or
+    not ("miss"), beside the mean number of clusters the true top-10 spans
+    ("gt_clusters")."""
+    from repro_torch import recall
+    from repro_torch.core.search import range_entry_ids
+
+    dev = index.device
+    ent = range_entry_ids(torch.as_tensor(L, device=dev),
+                          torch.as_tensor(R, device=dev), index.n).cpu()
+    ent_lab = np.where(ent >= 0, lab_np[ent.clamp_min(0).numpy()], -1)
+    hit = (ent_lab == lab_np[gt[:, 0]][:, None]).any(1)
+    spans = np.array([len(set(lab_np[g[g >= 0]].tolist())) for g in gt])
+
+    def rec(sel):
+        return round(recall(ids[sel], gt[sel]), 4) if sel.any() else None
+
+    return {int(i): {"queries": int((frac == i).sum()),
+                     "hit": int((hit & (frac == i)).sum()),
+                     "recall": rec(frac == i),
+                     "recall_hit": rec(hit & (frac == i)),
+                     "recall_miss": rec(~hit & (frac == i)),
+                     "gt_clusters": round(float(spans[frac == i].mean()), 2)}
+            for i in np.unique(frac)}
+
+
+def edge_jaccard(torch, a, b) -> float:
+    """Mean per-node Jaccard overlap of two [n, m] edge tables (each row's
+    ids distinct)."""
+    live_a, live_b = a >= 0, b >= 0
+    inter = ((a[:, :, None] == b[:, None, :]) & live_a[:, :, None]).any(2)
+    inter = inter.sum(1)
+    union = live_a.sum(1) + live_b.sum(1) - inter
+    jac = torch.where(union > 0, inter / union.clamp_min(1), 1.0)
+    return float(jac.double().mean())
+
+
+def witness_build(torch, n_cut) -> tuple[dict, bool]:
+    """The build kernels at a size where recall on wide ranges is already
+    low: build the same data twice on the card, once with the kernels and
+    once with the prune and the sibling searches' distances pinned to plain
+    torch, then compare the tables layer by layer and the recall of one
+    search over each by range fraction."""
+    from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig, recall
+    from repro_torch.data import make_workload, vector_dataset
+    from repro_torch.kernels import ops
+
+    vectors, attrs, _ = vector_dataset(n_cut, 128, seed=0, n_clusters=64,
+                                       attr_kind="uniform")
+    cfg = BuildConfig(m=16, ef_construction=64, chunk=BUILD_CHUNK)
+    t0 = time.perf_counter()
+    kidx = RangeGraphIndex.build(vectors, attrs[:, 0], cfg)
+    torch.cuda.synchronize()
+    k_s = time.perf_counter() - t0
+    before = ops.launch_counts()
+    t0 = time.perf_counter()
+    pidx = RangeGraphIndex.build(vectors, attrs[:, 0], cfg,
+                                 prune_impl="torch", dist_impl="torch")
+    torch.cuda.synchronize()
+    p_s = time.perf_counter() - t0
+    plain_launches = sum(ops.launch_counts().values()) - sum(before.values())
+    layers = kidx.neighbors.shape[1] - 1
+    jac = [edge_jaccard(torch, kidx.neighbors[:, lay], pidx.neighbors[:, lay])
+           for lay in range(layers)]
+    same_rows = float((kidx.neighbors == pidx.neighbors).all(2).all(1)
+                      .double().mean())
+    wl = make_workload(kidx, "mixed", n_queries=1000, seed=1)
+    gt, _ = kidx.brute_force(wl.queries, wl.L, wl.R, k=10)
+    c = SearchConfig(ef=64, expand_width=4, hop_impl="cuda")
+    rk = kidx.search_ranks(wl.queries, wl.L, wl.R, k=10, config=c)
+    rp = pidx.search_ranks(wl.queries, wl.L, wl.R, k=10, config=c)
+    rk, rp = rk.ids.cpu().numpy(), rp.ids.cpu().numpy()
+    frac = np.rint(np.log2(n_cut / (wl.R - wl.L + 1))).astype(int)
+    by_frac = {int(i): [round(recall(rk[frac == i], gt[frac == i]), 4),
+                        round(recall(rp[frac == i], gt[frac == i]), 4)]
+               for i in np.unique(frac)}
+    r_k, r_p = recall(rk, gt), recall(rp, gt)
+    out = {"n": n_cut, "kernel_build_s": round(k_s, 2),
+           "plain_build_s": round(p_s, 2),
+           "plain_build_kernel_launches": plain_launches,
+           "edge_jaccard_min": round(min(jac), 4),
+           "edge_jaccard_min_layer": int(np.argmin(jac)),
+           "identical_rows_share": round(same_rows, 4),
+           "recall_kernel_build": round(r_k, 4),
+           "recall_plain_build": round(r_p, 4),
+           "recall_by_frac_kernel_plain": by_frac}
+    good = (plain_launches == 0 and min(jac) >= 0.95
+            and abs(r_k - r_p) <= 0.01)
+    return out, good
+
+
+def profile_search(torch, search) -> None:
+    """One search under torch.profiler: device busy share of the wall time
+    and the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        t0 = time.perf_counter()
+        search()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+
+    # device-side rows only (kernels, copies): an operator's row repeats
+    # the device time of the kernels it launched
+    events = [e for e in prof.key_averages()
+              if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
+    busy = sum(dev_us(e) for e in events)
+    if not busy:
+        print("profile[search fused]: device time not measured (the "
+              "profiler saw no device activity)", flush=True)
+        return
+    top = sorted(events, key=dev_us, reverse=True)[:8]
+    print(f"profile[search fused]: wall {wall_us / 1e3:.2f} ms under the "
+          f"profiler, device busy {busy / 1e3:.2f} ms "
+          f"({100 * busy / wall_us:.1f}%); top device time: " + "; ".join(
+              f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
+              for e in top), flush=True)
+
+
+def run(args):
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
+    src = os.path.join(ROOT, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch", "csrc")):
+        fail(f"no src/repro_torch beside {os.path.basename(__file__)}: run "
+             "it from the root of a checkout")
+    sys.path.insert(0, src)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig, recall
+    from repro_torch.core import bitset
+    from repro_torch.data import make_workload, vector_dataset
+    from repro_torch.kernels import _build, ops, ref
+    from repro_torch.kernels.edge_select import select_edges_cuda
+    from repro_torch.kernels.gather_distance import gather_dist_cuda
+    from repro_torch.kernels.hop import hop_cuda
+    from repro_torch.kernels.prune import prune_cuda
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    torch.empty(1, device=dev)  # create the context before any query
+    print(card_line(), flush=True)  # the card's name and power limit
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} "
+          f"python {sys.version.split()[0]}", flush=True)
+
+    # -- set-up: the kernels, built from the checkout's sources ------------
+    t0 = time.perf_counter()
+    build_s = _build.build_all()
+    for name in _build.SOURCES:
+        _build.library(name)
+    print(f"setup: kernels built in {build_s:.1f} s "
+          f"(loaded in {time.perf_counter() - t0:.1f} s)", flush=True)
+    print(_build.ptxas_report(), flush=True)
+
+    # -- data ---------------------------------------------------------------
+    n, d = args.n, 128
+    if n < 1_000_000:
+        print(f"CUT: n = {n} (full size is 1,000,000)", flush=True)
+    t0 = time.perf_counter()
+    vectors, attrs, q_in, labels = vector_dataset(
+        n, d, seed=0, n_clusters=64, attr_kind="uniform", queries=1000,
+        labels=True)
+    print(f"setup: data n={n} d={d} in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+    # -- the main path, with every launch counter at 0 ----------------------
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    levels = []
+    index = RangeGraphIndex.build(
+        vectors, attrs[:, 0],
+        BuildConfig(m=16, ef_construction=64, chunk=BUILD_CHUNK),
+        level_times=levels)
+    torch.cuda.synchronize(dev)
+    build_seconds = time.perf_counter() - t0
+    after_build = ops.launch_counts()
+    print(f"build: n={n} layers={index.logn + 1} m=16 efc=64 "
+          f"chunk={BUILD_CHUNK}: {build_seconds:.1f} s; launches "
+          f"prune={after_build['prune']} "
+          f"gather_dist={after_build['gather_dist']}; peak device memory "
+          f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
+          flush=True)
+    print("build levels (layer, kind, seconds): " + json.dumps(
+        [[lv["layer"], lv["kind"], round(lv["seconds"], 3)]
+         for lv in levels]), flush=True)
+
+    wl = make_workload(index, "mixed", n_queries=1000, seed=1)
+    lo_val, hi_val = index.attrs[wl.L], index.attrs[wl.R]
+    L, R = index.ranks_of(lo_val, hi_val)
+    cfg = SearchConfig(ef=64, expand_width=4)
+    wide = cfg.replace(ef=QUALITY_EF)
+    runs = {  # name -> config; "plain" pins every op to plain torch
+        "fused": cfg.replace(hop_impl="cuda"),
+        "composed": cfg.replace(hop_impl="composed"),
+        f"fused ef={QUALITY_EF}": wide.replace(hop_impl="cuda"),
+    }
+    plain_runs = {
+        "fused": cfg.replace(hop_impl="torch", edge_impl="torch",
+                             dist_impl="torch"),
+        f"fused ef={QUALITY_EF}": wide.replace(
+            hop_impl="torch", edge_impl="torch", dist_impl="torch"),
+    }
+
+    def timed_search(c):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = index.search(wl.queries, lo_val, hi_val, k=10, config=c)
+        ids = res.ids.cpu().numpy()
+        return res, ids, time.perf_counter() - t0
+
+    index.search(wl.queries[:8], lo_val[:8], hi_val[:8], k=10,
+                 config=runs["fused"])  # warm-up
+    before_search = ops.launch_counts()
+    searches = {name: timed_search(c) for name, c in runs.items()}
+    counts = ops.launch_counts()
+    search_counts = {k: counts[k] - before_search[k] for k in counts}
+    never = [k for k, v in counts.items() if v == 0]
+    if never:
+        fail(f"kernels never launched on the main path: {never}")
+
+    # -- are the answers right? --------------------------------------------
+    t0 = time.perf_counter()
+    gt, _ = index.brute_force(wl.queries, L, R, k=10)
+    gt_s = time.perf_counter() - t0
+    ok = True
+    if not np.array_equal(searches["fused"][1], searches["composed"][1]):
+        print("search: fused and composed ids DIFFER", flush=True)
+        ok = False
+    for name, (res, ids, secs) in searches.items():
+        r = recall(ids, gt)
+        print(f"search[{name}]: {len(ids)} queries in {secs:.3f} s = "
+              f"{len(ids) / secs:.1f} QPS; recall@10 {r:.4f}; mean hops "
+              f"{float(res.n_hops.float().mean()):.1f}; mean distances "
+              f"{float(res.n_dists.float().mean()):.1f}", flush=True)
+    for name, c in plain_runs.items():
+        _, ids, secs = timed_search(c)
+        r_plain = recall(ids, gt)
+        r = recall(searches[name][1], gt)
+        print(f"search[{name}, plain torch on the card]: recall@10 "
+              f"{r_plain:.4f}, {len(ids) / secs:.1f} QPS", flush=True)
+        if abs(r - r_plain) > 0.01:
+            print(f"search[{name}]: recall {r:.4f} is not within 0.01 of "
+                  f"the plain search's {r_plain:.4f}", flush=True)
+            ok = False
+    r_wide = recall(searches[f"fused ef={QUALITY_EF}"][1], gt)
+    if r_wide < MIN_RECALL:
+        print(f"search: recall@10 {r_wide:.4f} at ef={QUALITY_EF} is below "
+              f"{MIN_RECALL}", flush=True)
+        ok = False
+    print(f"search: ground truth (plain torch on the card) in {gt_s:.1f} s",
+          flush=True)
+    print(f"search launches: {json.dumps(search_counts)}; main path "
+          f"launches: {json.dumps(counts)}", flush=True)
+    # where the recall goes: by range fraction 2^-i
+    frac = np.rint(np.log2(n / (R - L + 1))).astype(int)
+    for name in ("fused", f"fused ef={QUALITY_EF}"):
+        ids = searches[name][1]
+        by_frac = {int(i): round(recall(ids[frac == i], gt[frac == i]), 4)
+                   for i in np.unique(frac)}
+        print(f"search[{name}] recall@10 by range fraction 2^-i: "
+              f"{json.dumps(by_frac)}", flush=True)
+    # why wide ranges lose recall: do edges join clusters, do entry points
+    # decide it, and is it the workload's queries, which make_workload
+    # draws around other centres than the data's?
+    lab_np = labels[index.perm]                    # cluster of rank i
+    lab = torch.as_tensor(lab_np, device=dev)
+    print("diagnosis: cross-cluster edge share by layer "
+          f"{json.dumps(cross_cluster_share(torch, index, lab))}", flush=True)
+    print("diagnosis[fused, ef=64, workload queries]: " + json.dumps(
+        recall_by_entry(torch, index, lab_np, L, R, gt, searches["fused"][1],
+                        frac)), flush=True)
+    ids_in = index.search_ranks(q_in, L, R, k=10,
+                                config=runs["fused"]).ids.cpu().numpy()
+    gt_in, _ = index.brute_force(q_in, L, R, k=10)
+    r_in = recall(ids_in, gt_in)
+    print(f"diagnosis[fused, ef=64, queries around the data's centres]: "
+          f"recall@10 {r_in:.4f}; " + json.dumps(
+              recall_by_entry(torch, index, lab_np, L, R, gt_in, ids_in,
+                              frac)), flush=True)
+    if r_in < MIN_RECALL:
+        print(f"search: recall@10 {r_in:.4f} at ef=64 for queries around "
+              f"the data's centres is below {MIN_RECALL}", flush=True)
+        ok = False
+
+    profile_search(torch, lambda: index.search(
+        wl.queries, lo_val, hi_val, k=10, config=runs["fused"]))
+
+    # -- every kernel against its plain version, at main-path shapes --------
+    records = {}
+    table = index.vectors
+    nbrs = index.neighbors
+    logn = index.logn
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    B, W, m_out = wl.queries.shape[0], 4, index.m
+    q = torch.as_tensor(wl.queries, device=dev)
+    Lt = torch.as_tensor(L, device=dev)
+    Rt = torch.as_tensor(R, device=dev)
+    span = (Rt - Lt + 1).to(torch.float64)
+    u = (Lt[:, None] + (torch.rand((B, W), generator=gen, device=dev,
+                                   dtype=torch.float64) * span[:, None])
+         .floor().to(torch.int32)).contiguous()
+    exp_ok = torch.rand((B, W), generator=gen, device=dev) < 0.9
+    Lw = Lt.repeat_interleave(W).contiguous()
+    Rw = Rt.repeat_interleave(W).contiguous()
+    vis0 = bitset.make(B, n, device=dev)
+    seen_ids = (Lt[:, None] + (torch.rand((B, 32), generator=gen, device=dev,
+                                          dtype=torch.float64) * span[:, None])
+                .floor().to(torch.int32))
+    bitset.test_and_set(vis0, seen_ids, torch.ones_like(seen_ids,
+                                                         dtype=torch.bool))
+    qq = (q * q).sum(-1, keepdim=True)
+    xx_all = (table * table).sum(-1)
+
+    # edge_select at F = B*W
+    us = u.reshape(-1).contiguous()
+    F = us.shape[0]
+    got = select_edges_cuda(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
+    want = ref.select_edges(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
+    err = int((got - want).abs().max())
+    kms = time_ms(torch, lambda i: select_edges_cuda(
+        nbrs, us, Lw, Rw, logn=logn, m_out=m_out))
+    pms = time_ms(torch, lambda i: ref.select_edges(
+        nbrs, us, Lw, Rw, logn=logn, m_out=m_out), iters=5)
+    need = edge_positions_needed(torch, nbrs, us, Lw, Rw, logn, want)
+    bms, by = bound_ms(3 * F * 4 + need * 4 + F * m_out * 4, 0.0)
+    records["select_edges"] = dict(
+        ok=err == 0, max_abs_err=float(err), ms=kms, plain_ms=pms,
+        bound_ms=bms, bound_by=by,
+        shape=f"F={F} K={nbrs.shape[1] * nbrs.shape[2]} m_out={m_out}")
+
+    # gather_dist at [B, W*m_out] ids (the hop's edges)
+    ids = want.reshape(B, W * m_out).contiguous()
+    got = gather_dist_cuda(q, table, ids)
+    want_d = ref.gather_dist(q, table, ids)
+    xx = torch.where(ids >= 0, xx_all[ids.clamp_min(0).long()], 0.0)
+    err, good = dist_err(torch, got, want_d, qq, xx)
+    kms = time_ms(torch, lambda i: gather_dist_cuda(q, table, ids))
+    pms = time_ms(torch, lambda i: ref.gather_dist(q, table, ids))
+    nvalid_ids = int((ids >= 0).sum())
+    bms, by = bound_ms(ids.numel() * 8 + B * d * 4 + nvalid_ids * d * 4,
+                       nvalid_ids * 4 * d)
+    records["gather_dist"] = dict(
+        ok=good, max_abs_err=err, ms=kms, plain_ms=pms, bound_ms=bms,
+        bound_by=by, shape=f"B={B} M={ids.shape[1]} d={d}")
+
+    # the fused hop at B queries x W frontier rows
+    iters = 20
+    vis_k = [vis0.clone() for _ in range(iters + 3)]
+    vis_p = [vis0.clone() for _ in range(5 + 3)]
+    gk = hop_cuda(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
+                  logn=logn, m_out=m_out)
+    gp = ref.hop(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
+                 logn=logn, m_out=m_out)
+    int_ok = all(torch.equal(a, b) for a, b in
+                 ((gk[0], gp[0]), (gk[2], gp[2]), (gk[3], gp[3])))
+    xx = torch.where(gp[2], xx_all[gp[0].clamp_min(0).long()], 0.0)
+    err, good = dist_err(torch, gk[1], gp[1], qq, xx)
+    kms = time_ms(torch, lambda i: hop_cuda(
+        q, table, nbrs, u, Lw, Rw, vis_k[i], exp_ok, logn=logn,
+        m_out=m_out), iters=iters)
+    pms = time_ms(torch, lambda i: ref.hop(
+        q, table, nbrs, u, Lw, Rw, vis_p[i], exp_ok, logn=logn,
+        m_out=m_out), iters=5)
+    n_new = int(gp[2].sum())
+    pre_valid = (gp[0] >= 0) & exp_ok.repeat_interleave(m_out, dim=1)
+    need = edge_positions_needed(torch, nbrs, us, Lw, Rw, logn,
+                                 gp[0].reshape(F, m_out))
+    nbytes = (B * d * 4 + B * W * 13 + need * 4 + int(pre_valid.sum()) * 4
+              + n_new * 4 + n_new * d * 4 + B * W * m_out * 9)
+    bms, by = bound_ms(nbytes, n_new * 4 * d)
+    records["hop"] = dict(
+        ok=int_ok and good, max_abs_err=err, ms=kms, plain_ms=pms,
+        bound_ms=bms, bound_by=by,
+        shape=f"B={B} W={W} m_out={m_out} n={n} d={d}")
+    del vis_k, vis_p
+
+    # prune at the build's two candidate widths
+    for C in (80, 128):
+        Bp = 16384
+        node = (torch.rand((Bp,), generator=gen, device=dev) * n).long()
+        if C == 128:  # a brute level: the node's 128-wide segment
+            base = (node >> 7) << 7
+            cand = base[:, None] + torch.arange(128, device=dev)[None, :]
+            cand = torch.where((cand < n) & (cand != node[:, None]), cand, -1)
+        else:  # a search level: own child's edges + 64 sibling ids
+            lay = max(logn - 10, 0)
+            own = nbrs[node, lay + 1, :].long()
+            shift = logn - lay - 1
+            sib = ((node >> shift) ^ 1) << shift
+            pick = (torch.rand((Bp, 64), generator=gen, device=dev)
+                    * (1 << shift)).long()
+            cand = torch.cat([own, sib[:, None] + pick], dim=1)
+            cand = torch.where((cand >= 0) & (cand < n)
+                               & (cand != node[:, None]), cand, -1)
+        cand = cand.to(torch.int32).contiguous()
+        cvec = table[cand.clamp_min(0).long()]
+        du = torch.where(cand >= 0, ((cvec - table[node][:, None, :]) ** 2)
+                         .sum(-1), torch.inf).contiguous()
+        got = prune_cuda(cand, du, table, m=16)
+        want = ref.prune(cand, du, table, m=16)
+        diff = (got != want).any(dim=1).nonzero()[:, 0].tolist()
+        ties = sum(prune_near_tie(torch, cand[r], du[r], cvec[r], 16, 1.0,
+                                  True) for r in diff)
+        good = ties == len(diff) and len(diff) <= PRUNE_MAX_DIFF * Bp
+        kms = time_ms(torch, lambda i: prune_cuda(cand, du, table, m=16))
+        pms = time_ms(torch, lambda i: ref.prune(cand, du, table, m=16),
+                      iters=3)
+        nv = int((cand >= 0).sum())
+        bms, by = bound_ms(Bp * C * 8 + nv * d * 4 + Bp * 16 * 4,
+                           Bp * 16 * C * 2 * d)
+        rec = dict(ok=good, max_abs_err=float((got - want).abs().max()),
+                   ms=kms,
+                   plain_ms=pms, bound_ms=bms, bound_by=by,
+                   rows_differ=len(diff), near_ties=ties,
+                   shape=f"B={Bp} C={C} d={d} m=16")
+        records["prune" if C == 80 else "prune_C128"] = rec
+
+    sources = {
+        "gather_dist": ("gather_distance.cu", "gather_distance.py:48"),
+        "select_edges": ("edge_select.cu", "edge_select.py:52"),
+        "hop": ("hop.cu", "hop.py:61"),
+        "prune": ("prune.cu", "prune.py:44"),
+    }
+    kernels = []
+    for name, (cu, tpu) in sources.items():
+        rec = records[name]
+        print(f"kernel {name} [{rec['shape']}]: {rec['ms']:.4f} ms, plain "
+              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+              f"({rec['bound_by']}), max_abs_err {rec['max_abs_err']:.3g}"
+              + (f", rows differing {rec['rows_differ']} (near ties "
+                 f"{rec['near_ties']})" if "rows_differ" in rec else "")
+              + ("" if rec["ok"] else "  DISAGREES"), flush=True)
+        if not rec["ok"]:
+            ok = False
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{cu}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": counts[name],
+            "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None,
+        })
+        if "rows_differ" in rec:
+            kernels[-1].update(rows_differ=rec["rows_differ"],
+                               near_ties=rec["near_ties"])
+    c128 = records["prune_C128"]
+    print(f"kernel prune [{c128['shape']}]: {c128['ms']:.4f} ms, plain "
+          f"{c128['plain_ms']:.4f} ms, bound {c128['bound_ms']:.4f} ms "
+          f"({c128['bound_by']}), rows differing {c128['rows_differ']} "
+          f"(near ties {c128['near_ties']})"
+          + ("" if c128["ok"] else "  DISAGREES"), flush=True)
+    if not c128["ok"]:
+        ok = False
+    kernels[-1]["at_C128"] = {k: c128[k] for k in
+                              ("ms", "plain_ms", "bound_ms", "max_abs_err",
+                               "rows_differ", "near_ties")}
+
+    # -- the build kernels against a plain build, at a cut size -------------
+    t0 = time.perf_counter()
+    wit, good = witness_build(torch, WITNESS_N)
+    print(f"witness[build n={WITNESS_N}, kernels vs plain torch] in "
+          f"{time.perf_counter() - t0:.1f} s: {json.dumps(wit)}"
+          + ("" if good else "  DISAGREES"), flush=True)
+    if not good:
+        ok = False
+    if not ok:
+        fail("a check failed (see above)")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+
+
+def main():
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--n", type=int, default=1_000_000,
+                    help="dataset size (default: the full 1,000,000)")
+    run(ap.parse_args())
+
+
+if __name__ == "__main__":
+    main()

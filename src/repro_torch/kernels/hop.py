@@ -1,0 +1,84 @@
+"""One whole beam-search hop: the CUDA kernel's wrapper.
+
+Replaces the TPU kernel ``repro/kernels/hop.py::_hop_kernel`` (line 61).
+The kernel is ``csrc/hop.cu``; it reuses the device functions of the
+gather-distance and edge-select kernels (``csrc/common.cuh``). Its header
+says what bounds it on the H100 (memory: edge blocks, visited words, and
+the rows of newly visited ids) and what its design does about that (one
+block per query; the visited row stays in global memory, read and
+``atomicOr``-ed word by word after the lowest-slot-wins dedup). The plain
+version is ``kernels/ref.py::hop`` (``plain`` here).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels import edge_select as _edge
+from repro_torch.kernels import ref as _ref
+
+__all__ = ["hop_cuda", "plain"]
+
+plain = _ref.hop
+_METRICS = {"l2": 0, "ip": 1}
+
+
+@functools.cache
+def _entry():
+    f = _build.library("hop").rt_hop
+    f.argtypes = [ctypes.c_void_p] * 11 + [ctypes.c_int] * 11 \
+        + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    return f
+
+
+def hop_cuda(q, table, nbrs, u, L, R, visited, exp_ok, *, logn, m_out,
+             skip_layers=True, metric="l2"):
+    """The fused hop on CUDA tensors: q f32[B, d], table f32[n, d], nbrs
+    int32[n, layers, m], u int32[B, W], L/R int32[B*W] (or ints), visited
+    int32[B, ceil(n/32)], exp_ok bool[B, W].
+
+    Returns ``(nbr int32[B, W*m_out], ndist f32[B, W*m_out],
+    nvalid bool[B, W*m_out], visited)``; ``visited`` is updated IN PLACE
+    and returned. Launches the kernel or raises.
+    """
+    if metric not in _METRICS:
+        raise ValueError(f"unknown metric {metric!r}")
+    dev = q.device
+    _build.check_tensor(q, "q", torch.float32, 2, dev)
+    _build.check_tensor(table, "table", torch.float32, 2, dev)
+    _edge.check_table(nbrs, logn, m_out, dev)
+    _build.check_tensor(u, "u", torch.int32, 2, dev)
+    _build.check_tensor(visited, "visited", torch.int32, 2, dev)
+    _build.check_tensor(exp_ok, "exp_ok", torch.bool, 2, dev)
+    B, W = u.shape
+    n, d = table.shape
+    words = visited.shape[1]
+    if (q.shape[0] != B or tuple(exp_ok.shape) != (B, W)
+            or visited.shape[0] != B or words * 32 < n
+            or nbrs.shape[0] != n or q.shape[1] != d):
+        raise ValueError("hop: shapes do not agree")
+    L, R = _edge.frontier_bounds(L, R, B * W, dev)
+    WM = W * m_out
+    nbr = torch.empty((B, WM), dtype=torch.int32, device=dev)
+    ndist = torch.empty((B, WM), dtype=torch.float32, device=dev)
+    nvalid = torch.empty((B, WM), dtype=torch.bool, device=dev)
+    if B == 0 or W == 0:
+        return nbr, ndist, nvalid, visited
+    layers, m = nbrs.shape[1], nbrs.shape[2]
+    with torch.cuda.device(dev):
+        rc = _entry()(q.data_ptr(), table.data_ptr(), nbrs.data_ptr(),
+                      u.data_ptr(), L.data_ptr(), R.data_ptr(),
+                      visited.data_ptr(), exp_ok.data_ptr(), nbr.data_ptr(),
+                      ndist.data_ptr(), nvalid.data_ptr(), B, W, n, d,
+                      layers, m, logn, int(bool(skip_layers)), m_out, words,
+                      _METRICS[metric], _build.stream_of(dev))
+    _build.check(rc, "hop", "hop")
+    hop_cuda.launches += 1
+    return nbr, ndist, nvalid, visited
+
+
+hop_cuda.launches = 0

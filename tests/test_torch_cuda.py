@@ -1,0 +1,162 @@
+"""The port's CUDA kernels against their plain versions, on the card.
+
+Marked ``cuda``: without a card every test skips (the decision is taken in
+a fixture). On the card, run ``python -m pytest -m cuda
+tests/test_torch_cuda.py``. This file imports torch and the port only, so
+it runs where JAX is not installed. Small shapes that reach the kernels' edge
+cases: d not a multiple of 4 (the scalar load path), n not a multiple of
+32, bit 31 of a visited word, -1 everywhere, ip, alpha > 1, no fill.
+Integers are bit-identical; distances agree within 1e-5 of the magnitude
+of their terms (``‖q‖² + ‖x‖²``; both sum d products in other orders).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core import bitset
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.edge_select import select_edges_cuda
+from repro_torch.kernels.gather_distance import gather_dist_cuda
+from repro_torch.kernels.hop import hop_cuda
+from repro_torch.kernels.prune import prune_cuda
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (run on the card: -m cuda)")
+    return torch.device("cuda", 0)
+
+
+def _close(got, want, q, table, ids):
+    assert torch.equal(torch.isfinite(got), torch.isfinite(want))
+    fin = torch.isfinite(want)
+    qq = (q * q).sum(-1, keepdim=True).expand_as(want)
+    xx = (table * table).sum(-1)[ids.clamp_min(0).long()]
+    tol = 1e-5 * (qq + xx)
+    assert bool(((got - want).abs() <= tol)[fin].all())
+
+
+def _problem(dev, n=333, d=24, m=4, B=7, W=3, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    logn = int(np.ceil(np.log2(n)))
+    table = torch.randn((n, d), generator=g)
+    nbrs = torch.randint(-1, n, (n, logn + 1, m), generator=g,
+                         dtype=torch.int32)
+    q = torch.randn((B, d), generator=g)
+    u = torch.randint(-1, n, (B, W), generator=g, dtype=torch.int32)
+    L = torch.randint(0, n // 2, (B,), generator=g, dtype=torch.int32)
+    R = L + torch.randint(0, n // 2, (B,), generator=g, dtype=torch.int32)
+    exp_ok = torch.rand((B, W), generator=g) < 0.7
+    pre = torch.randint(0, n, (B, 9), generator=g, dtype=torch.int32)
+    pre[0, :2] = 31  # bit 31 of word 0
+    vis = bitset.make(B, n)
+    bitset.test_and_set(vis, pre, torch.ones_like(pre, dtype=torch.bool))
+    to = dict(device=dev)
+    return dict(n=n, logn=logn, table=table.to(**to), nbrs=nbrs.to(**to),
+                q=q.to(**to), u=u.to(**to), Lw=L.repeat_interleave(W).to(**to),
+                Rw=R.repeat_interleave(W).to(**to), exp_ok=exp_ok.to(**to),
+                vis=vis.to(**to))
+
+
+@pytest.mark.parametrize("d", [24, 13, 128])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_gather_dist(dev, d, metric):
+    p = _problem(dev, d=d)
+    ids = torch.randint(-1, p["n"], (5, 37), device=dev, dtype=torch.int32)
+    ids[1] = -1
+    q = p["q"][:5].contiguous()
+    got = gather_dist_cuda(q, p["table"], ids, metric=metric)
+    want = ref.gather_dist(q, p["table"], ids, metric=metric)
+    if metric == "l2":
+        _close(got, want, q, p["table"], ids)
+    else:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("skip_layers", [True, False])
+@pytest.mark.parametrize("case", ["random", "L>R", "L==R", "full"])
+def test_select_edges(dev, skip_layers, case):
+    p = _problem(dev, n=1000, m=8, B=64, W=1)
+    us = p["u"].reshape(-1)
+    L, R = p["Lw"].clone(), p["Rw"].clone()
+    if case == "L>R":
+        L, R = R + 1, L
+    elif case == "L==R":
+        R = L.clone()
+        us = L.clone()
+    elif case == "full":
+        L[:] = 0
+        R[:] = p["n"] - 1
+    for m_out in (1, 8, 40):
+        got = select_edges_cuda(p["nbrs"], us, L, R, logn=p["logn"],
+                                m_out=m_out, skip_layers=skip_layers)
+        want = ref.select_edges(p["nbrs"], us, L, R, logn=p["logn"],
+                                m_out=m_out, skip_layers=skip_layers)
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("d", [24, 13])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_hop(dev, d, metric):
+    p = _problem(dev, d=d)
+    args = (p["q"], p["table"], p["nbrs"], p["u"], p["Lw"], p["Rw"])
+    vk, vp = p["vis"].clone(), p["vis"].clone()
+    got = hop_cuda(*args, vk, p["exp_ok"], logn=p["logn"], m_out=8,
+                   metric=metric)
+    want = ref.hop(*args, vp, p["exp_ok"], logn=p["logn"], m_out=8,
+                   metric=metric)
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], want[i])
+    assert got[3] is vk
+    if metric == "l2":
+        _close(got[1], want[1], p["q"], p["table"], got[0])
+    else:
+        torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
+    # the dispatch's auto picks the kernel on CUDA tensors, and the
+    # composed path gives the same integers
+    ops.reset_launch_counts()
+    comp = ops.hop(*args, p["vis"].clone(), p["exp_ok"], logn=p["logn"],
+                   m_out=8, metric=metric, impl="composed")
+    auto = ops.hop(*args, p["vis"].clone(), p["exp_ok"], logn=p["logn"],
+                   m_out=8, metric=metric)
+    for i in (0, 2, 3):
+        assert torch.equal(comp[i], auto[i])
+    counts = ops.launch_counts()
+    assert counts["hop"] == 1 and counts["select_edges"] == 1
+    assert counts["gather_dist"] == 1
+
+
+@pytest.mark.parametrize("alpha,fill", [(1.0, True), (1.3, True),
+                                        (1.0, False)])
+@pytest.mark.parametrize("C,d", [(20, 16), (80, 128), (128, 128), (33, 7)])
+def test_prune(dev, alpha, fill, C, d):
+    g = torch.Generator().manual_seed(C + d)
+    n, B = 500, 64
+    table = torch.randn((n, d), generator=g).to(dev)
+    node = torch.randint(0, n, (B,), generator=g).to(dev)
+    cand = torch.randint(-1, n, (B, C), generator=g,
+                         dtype=torch.int32).to(dev)
+    cand[:, 5] = cand[:, 2]
+    cand = torch.where(cand == node[:, None].int(), -1, cand)
+    cand[1] = -1
+    cvec = table[cand.clamp_min(0).long()]
+    du = torch.where(cand >= 0,
+                     ((cvec - table[node][:, None, :]) ** 2).sum(-1),
+                     torch.inf).contiguous()
+    for m in (4, 16):
+        got = prune_cuda(cand, du, table, m=m, alpha=alpha, fill=fill)
+        want = ref.prune(cand, du, table, m=m, alpha=alpha, fill=fill)
+        assert torch.equal(got, want)
+
+
+def test_cuda_rejects_bad_inputs(dev):
+    p = _problem(dev)
+    with pytest.raises(TypeError):
+        gather_dist_cuda(p["q"], p["table"].double(), p["u"])
+    with pytest.raises(ValueError, match="contiguous"):
+        gather_dist_cuda(p["q"], p["table"].t(), p["u"])
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_dist_cuda(p["q"].cpu(), p["table"], p["u"])
