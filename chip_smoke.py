@@ -26,9 +26,29 @@ the full-size run, one card). It
      order; prune rows may differ only at near-tie keep decisions,
      ``|alpha*cc - du| <= 1e-5*du``, in under 0.1% of rows) and times
      kernel, plain version and bound with CUDA events;
-  6. builds n = 131,072 twice, with the kernels and all-plain, and holds
+  6. drives the codec path with every count at 0: re-encodes the 1M index
+     with ``astype_storage`` to bf16, f16 (both with "auto" ids), int8 and
+     PQ (both with split ids; PQ with its int8 rerank sidecar), printing
+     the seconds and stored bytes of each against f32; answers the same
+     1,000 queries on each at ef = 64 and 256 through the fused hop, the
+     composed hop and the all-plain path (PQ also with rerank = 48);
+     prints recall@10 against the f32 ground truth, its difference to the
+     f32 index at the same ef, and QPS; fails if a codec layout of
+     gather_dist or hop never launched. Gates: fused ids identical to
+     composed ids; fused recall within 0.01 of the all-plain path's; PQ
+     with rerank >= PQ without;
+  7. holds each codec layout of gather_dist and hop against its plain
+     version at the main path's shapes, as in step 5, with the bound
+     counted at the stored row width (the int8 scale per row, the PQ
+     codebook once); no single PyTorch call computes either, so
+     library_ms is null;
+  8. saves the int8 and the PQ index with the port's own msgpack packer
+     (zlib where zstandard is missing), loads them back onto the card, and
+     holds every array and the search ids equal;
+  9. builds n = 131,072 twice, with the kernels and all-plain, and holds
      the tables and their search recall against each other;
-  7. prints one JSON line of kernel records and, last, the device line.
+  10. prints one JSON line of kernel records (each codec layout as e.g.
+     ``gather_dist[int8]``) and, last, the device line.
 
 It exits non-zero, printing no result, when there is no CUDA card, when
 the repo's sources are not beside it, or when any phase fails.
@@ -269,6 +289,256 @@ def witness_build(torch, n_cut) -> tuple[dict, bool]:
     return out, good
 
 
+# The codec slice: every stored layout of the vector table, re-encoded from
+# the main 1M index (StorageConfig presets, as repro names them).
+CODECS = (("bf16", "compact", ("bfloat16",)), ("f16", "compact", ("float16",)),
+          ("int8", "int8", ()), ("pq", "pq", ()))
+PQ_RERANK = 48            # SearchConfig.rerank for PQ, as tests/test_codecs
+# TPU codec body each layout replaces (file:line of the decode branch)
+CODEC_TPU = {
+    "gather_dist": {"bf16": "gather_distance.py:111",
+                    "f16": "gather_distance.py:111",
+                    "int8": "gather_distance.py:98",
+                    "pq": "gather_distance.py:101"},
+    "hop": {"bf16": "hop.py:233", "f16": "hop.py:233", "int8": "hop.py:220",
+            "pq": "hop.py:223"},
+}
+
+
+def stored_row_bytes(table) -> tuple[int, int]:
+    """(bytes of one stored row including its int8 scale, bytes read once
+    per call: the PQ codebook) of a vector table."""
+    from repro_torch.core import storage
+
+    if isinstance(table, storage.Int8Vectors):
+        return table.codes.shape[1] + 4, 0
+    if isinstance(table, storage.PQVectors):
+        return (table.codes.shape[1],
+                table.codebook.numel() * table.codebook.element_size())
+    return table.shape[1] * table.element_size(), 0
+
+
+def encode_codecs(torch, index) -> dict:
+    """Re-encode the index under every codec on the card; print the
+    seconds and the stored bytes of each table against f32."""
+    from repro_torch import StorageConfig
+    from repro_torch.core import storage
+
+    def parts(ix):
+        return {"vectors": storage.table_nbytes(ix.vectors),
+                "neighbors": storage.table_nbytes(ix.neighbors),
+                "rerank": storage.table_nbytes(ix.rerank),
+                "total": ix.nbytes}
+
+    base = parts(index)
+    print(f"encode[f32]: stored bytes {json.dumps(base)}", flush=True)
+    out = {}
+    for name, preset, args in CODECS:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = index.astype_storage(getattr(StorageConfig, preset)(*args))
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        got = parts(out[name])
+        print(f"encode[{name}]: {secs:.2f} s; stored bytes "
+              f"{json.dumps(got)}; vs f32: vectors "
+              f"{got['vectors'] / base['vectors']:.4f}, neighbors "
+              f"{got['neighbors'] / base['neighbors']:.4f}, total "
+              f"{got['total'] / base['total']:.4f}", flush=True)
+    return out
+
+
+def codec_searches(torch, codec_idx, wl, lo_val, hi_val, gt, f32_recall,
+                   efs) -> bool:
+    """Each codec index answers the workload at each ef through the fused
+    hop, the composed hop and the all-plain path (PQ also with rerank).
+    Gates: fused ids == composed ids; fused recall within 0.01 of the
+    all-plain path's; PQ with rerank >= PQ without, less 1e-9."""
+    from repro_torch import SearchConfig, recall
+
+    ok = True
+    for name, idx in codec_idx.items():
+        for ef in efs:
+            base = SearchConfig(ef=ef, expand_width=4)
+            variants = [0] + ([PQ_RERANK] if name == "pq" else [])
+            rec = {}
+            for rr in variants:
+                c = base.replace(rerank=rr)
+                paths = {"fused": c.replace(hop_impl="cuda"),
+                         "composed": c.replace(hop_impl="composed"),
+                         "plain": c.replace(hop_impl="torch",
+                                            edge_impl="torch",
+                                            dist_impl="torch")}
+                got = {}
+                for path, pc in paths.items():
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = idx.search(wl.queries, lo_val, hi_val, k=10,
+                                     config=pc)
+                    ids = res.ids.cpu().numpy()
+                    got[path] = (ids, time.perf_counter() - t0)
+                tag = f"{name} ef={ef}" + (f" rerank={rr}" if rr else "")
+                r = {p: recall(ids, gt) for p, (ids, _) in got.items()}
+                rec[rr] = r["fused"]
+                same = bool(np.array_equal(got["fused"][0],
+                                           got["composed"][0]))
+                print(f"codec search[{tag}]: recall@10 fused "
+                      f"{r['fused']:.4f} (vs f32 "
+                      f"{r['fused'] - f32_recall[ef]:+.4f}), composed "
+                      f"{r['composed']:.4f}, plain {r['plain']:.4f}; QPS "
+                      + ", ".join(f"{p} {len(ids) / secs:.1f}"
+                                  for p, (ids, secs) in got.items())
+                      + ("" if same else "; fused and composed ids DIFFER"),
+                      flush=True)
+                if not same:
+                    ok = False
+                if abs(r["fused"] - r["plain"]) > 0.01:
+                    print(f"codec search[{tag}]: fused recall is not within "
+                          "0.01 of the all-plain path's", flush=True)
+                    ok = False
+            if name == "pq" and rec[PQ_RERANK] < rec[0] - 1e-9:
+                print(f"codec search[pq ef={ef}]: rerank recall "
+                      f"{rec[PQ_RERANK]:.4f} below no-rerank {rec[0]:.4f}",
+                      flush=True)
+                ok = False
+    return ok
+
+
+def table_kernels(torch, name, table, nbrs, q, ids, hop_args,
+                  hop_need) -> dict:
+    """gather_dist and hop on one stored vector table against their plain
+    versions on the card at the main path's shapes: distances within
+    DIST_RTOL of their terms, the hop's integers identical; ms, plain ms
+    and the bound at the stored row width (the int8 scale per row, the PQ
+    codebook once). Returns {"gather_dist": record, "hop": record}."""
+    from repro_torch.core import storage
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gather_distance import gather_dist_cuda
+    from repro_torch.kernels.hop import hop_cuda
+
+    u, Lw, Rw, vis0, exp_ok, logn, m_out = hop_args
+    B, d = q.shape
+    W = u.shape[1]
+    tag = "" if name == "f32" else f" {name}"
+    qq = (q * q).sum(-1, keepdim=True)
+    dec = storage.decode_vectors(table)
+    xx_all = (dec * dec).sum(-1)
+    del dec
+    row, once = stored_row_bytes(table)
+    records = {}
+
+    got = gather_dist_cuda(q, table, ids)
+    want = ref.gather_dist(q, table, ids)
+    xx = torch.where(ids >= 0, xx_all[ids.clamp_min(0).long()], 0.0)
+    err, good = dist_err(torch, got, want, qq, xx)
+    kms = time_ms(torch, lambda i: gather_dist_cuda(q, table, ids))
+    pms = time_ms(torch, lambda i: ref.gather_dist(q, table, ids))
+    nv = int((ids >= 0).sum())
+    bms, by = bound_ms(ids.numel() * 8 + B * d * 4 + nv * row + once,
+                       nv * 4 * d)
+    records["gather_dist"] = dict(
+        ok=good, max_abs_err=err, ms=kms, plain_ms=pms, bound_ms=bms,
+        bound_by=by, shape=f"B={B} M={ids.shape[1]} d={d}{tag}")
+
+    iters = 20
+    vis_k = [vis0.clone() for _ in range(iters + 3)]
+    vis_p = [vis0.clone() for _ in range(5 + 3)]
+    gk = hop_cuda(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
+                  logn=logn, m_out=m_out)
+    gp = ref.hop(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
+                 logn=logn, m_out=m_out)
+    int_ok = all(torch.equal(a, b) for a, b in
+                 ((gk[0], gp[0]), (gk[2], gp[2]), (gk[3], gp[3])))
+    xx = torch.where(gp[2], xx_all[gp[0].clamp_min(0).long()], 0.0)
+    err, good = dist_err(torch, gk[1], gp[1], qq, xx)
+    kms = time_ms(torch, lambda i: hop_cuda(
+        q, table, nbrs, u, Lw, Rw, vis_k[i], exp_ok, logn=logn,
+        m_out=m_out), iters=iters)
+    pms = time_ms(torch, lambda i: ref.hop(
+        q, table, nbrs, u, Lw, Rw, vis_p[i], exp_ok, logn=logn,
+        m_out=m_out), iters=5)
+    n_new = int(gp[2].sum())
+    pre_valid = (gp[0] >= 0) & exp_ok.repeat_interleave(m_out, dim=1)
+    need = hop_need(nbrs, gp[0])
+    nbytes = (B * d * 4 + B * W * 13 + need * 4 + int(pre_valid.sum()) * 4
+              + n_new * 4 + n_new * row + once + B * W * m_out * 9)
+    bms, by = bound_ms(nbytes, n_new * 4 * d)
+    records["hop"] = dict(
+        ok=int_ok and good, max_abs_err=err, ms=kms, plain_ms=pms,
+        bound_ms=bms, bound_by=by,
+        shape=f"B={B} W={W} m_out={m_out} n={storage.table_n(table)} "
+              f"d={d}{tag}")
+    return records
+
+
+def codec_files(torch, codec_idx, wl, lo_val, hi_val, names) -> bool:
+    """Save each named codec index with the port's packer (zlib where
+    zstandard is missing) to a temporary directory, load it back on the
+    card, and hold every array and the search ids equal."""
+    import tempfile
+
+    from repro_torch import RangeGraphIndex, SearchConfig
+
+    c = SearchConfig(ef=64, expand_width=4, hop_impl="cuda")
+    ok = True
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        for name in names:
+            idx = codec_idx[name]
+            cr = c.replace(rerank=PQ_RERANK) if idx.rerank is not None else c
+            path = os.path.join(tmp, f"{name}.bin")
+            t0 = time.perf_counter()
+            idx.save(path)
+            save_s = time.perf_counter() - t0
+            size = os.path.getsize(path)
+            t0 = time.perf_counter()
+            back = RangeGraphIndex.load(path)
+            torch.cuda.synchronize()
+            load_s = time.perf_counter() - t0
+            os.remove(path)
+            a, b = idx.to_numpy(), back.to_numpy()
+            same = set(a) == set(b)
+            for k in a:
+                if isinstance(a[k], np.ndarray) or isinstance(a[k], tuple):
+                    la = list(a[k]) if isinstance(a[k], tuple) else [a[k]]
+                    lb = list(b[k]) if isinstance(b[k], tuple) else [b[k]]
+                    same &= type(a[k]) is type(b[k]) and len(la) == len(lb)
+                    same &= all(x.dtype == y.dtype and np.array_equal(x, y)
+                                for x, y in zip(la, lb))
+                else:
+                    same &= a[k] == b[k]
+            ids_a = idx.search(wl.queries, lo_val, hi_val, k=10,
+                               config=cr).ids.cpu().numpy()
+            ids_b = back.search(wl.queries, lo_val, hi_val, k=10,
+                                config=cr).ids.cpu().numpy()
+            same_ids = bool(np.array_equal(ids_a, ids_b))
+            print(f"files[{name}, n={idx.n}]: saved {size / 2**20:.1f} MiB "
+                  f"in {save_s:.1f} s, loaded on {back.device} in "
+                  f"{load_s:.1f} s; arrays equal {same}; search ids equal "
+                  f"{same_ids}", flush=True)
+            ok &= bool(same) and same_ids and back.device.type == "cuda"
+            del back
+    return ok
+
+
+def kernel_entry(name, rec, cu, tpu, launches) -> dict:
+    """Print one kernel's check and return its record of the kernels line
+    (no single PyTorch call computes any of these kernels' functions, so
+    library_ms is null)."""
+    print(f"kernel {name} [{rec['shape']}]: {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
+          f"({rec['bound_by']}), max_abs_err {rec['max_abs_err']:.3g}"
+          + (f", rows differing {rec['rows_differ']} (near ties "
+             f"{rec['near_ties']})" if "rows_differ" in rec else "")
+          + ("" if rec["ok"] else "  DISAGREES"), flush=True)
+    return {"name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{cu}",
+            "replaces": f"src/repro/kernels/{tpu}",
+            "launches": launches, "max_abs_err": rec["max_abs_err"],
+            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+            "library_ms": None}
+
+
 def profile_search(torch, search) -> None:
     """One search under torch.profiler: device busy share of the wall time
     and the kernels that took the most device time."""
@@ -317,7 +587,7 @@ def run(args):
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig, recall
-    from repro_torch.core import bitset
+    from repro_torch.core import bitset, storage
     from repro_torch.data import make_workload, vector_dataset
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.edge_select import select_edges_cuda
@@ -499,8 +769,6 @@ def run(args):
                 .floor().to(torch.int32))
     bitset.test_and_set(vis0, seen_ids, torch.ones_like(seen_ids,
                                                          dtype=torch.bool))
-    qq = (q * q).sum(-1, keepdim=True)
-    xx_all = (table * table).sum(-1)
 
     # edge_select at F = B*W
     us = u.reshape(-1).contiguous()
@@ -519,51 +787,17 @@ def run(args):
         bound_ms=bms, bound_by=by,
         shape=f"F={F} K={nbrs.shape[1] * nbrs.shape[2]} m_out={m_out}")
 
-    # gather_dist at [B, W*m_out] ids (the hop's edges)
+    # gather_dist at [B, W*m_out] ids (the hop's edges), and the fused hop
+    # at B queries x W frontier rows
     ids = want.reshape(B, W * m_out).contiguous()
-    got = gather_dist_cuda(q, table, ids)
-    want_d = ref.gather_dist(q, table, ids)
-    xx = torch.where(ids >= 0, xx_all[ids.clamp_min(0).long()], 0.0)
-    err, good = dist_err(torch, got, want_d, qq, xx)
-    kms = time_ms(torch, lambda i: gather_dist_cuda(q, table, ids))
-    pms = time_ms(torch, lambda i: ref.gather_dist(q, table, ids))
-    nvalid_ids = int((ids >= 0).sum())
-    bms, by = bound_ms(ids.numel() * 8 + B * d * 4 + nvalid_ids * d * 4,
-                       nvalid_ids * 4 * d)
-    records["gather_dist"] = dict(
-        ok=good, max_abs_err=err, ms=kms, plain_ms=pms, bound_ms=bms,
-        bound_by=by, shape=f"B={B} M={ids.shape[1]} d={d}")
+    hop_args = (u, Lw, Rw, vis0, exp_ok, logn, m_out)
 
-    # the fused hop at B queries x W frontier rows
-    iters = 20
-    vis_k = [vis0.clone() for _ in range(iters + 3)]
-    vis_p = [vis0.clone() for _ in range(5 + 3)]
-    gk = hop_cuda(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
-                  logn=logn, m_out=m_out)
-    gp = ref.hop(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
-                 logn=logn, m_out=m_out)
-    int_ok = all(torch.equal(a, b) for a, b in
-                 ((gk[0], gp[0]), (gk[2], gp[2]), (gk[3], gp[3])))
-    xx = torch.where(gp[2], xx_all[gp[0].clamp_min(0).long()], 0.0)
-    err, good = dist_err(torch, gk[1], gp[1], qq, xx)
-    kms = time_ms(torch, lambda i: hop_cuda(
-        q, table, nbrs, u, Lw, Rw, vis_k[i], exp_ok, logn=logn,
-        m_out=m_out), iters=iters)
-    pms = time_ms(torch, lambda i: ref.hop(
-        q, table, nbrs, u, Lw, Rw, vis_p[i], exp_ok, logn=logn,
-        m_out=m_out), iters=5)
-    n_new = int(gp[2].sum())
-    pre_valid = (gp[0] >= 0) & exp_ok.repeat_interleave(m_out, dim=1)
-    need = edge_positions_needed(torch, nbrs, us, Lw, Rw, logn,
-                                 gp[0].reshape(F, m_out))
-    nbytes = (B * d * 4 + B * W * 13 + need * 4 + int(pre_valid.sum()) * 4
-              + n_new * 4 + n_new * d * 4 + B * W * m_out * 9)
-    bms, by = bound_ms(nbytes, n_new * 4 * d)
-    records["hop"] = dict(
-        ok=int_ok and good, max_abs_err=err, ms=kms, plain_ms=pms,
-        bound_ms=bms, bound_by=by,
-        shape=f"B={B} W={W} m_out={m_out} n={n} d={d}")
-    del vis_k, vis_p
+    def hop_need(nb, out):
+        return edge_positions_needed(torch, nb, us, Lw, Rw, logn,
+                                     out.reshape(F, m_out))
+
+    records.update(table_kernels(torch, "f32", table, nbrs, q, ids,
+                                 hop_args, hop_need))
 
     # prune at the build's two candidate widths
     for C in (80, 128):
@@ -615,24 +849,8 @@ def run(args):
     kernels = []
     for name, (cu, tpu) in sources.items():
         rec = records[name]
-        print(f"kernel {name} [{rec['shape']}]: {rec['ms']:.4f} ms, plain "
-              f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-              f"({rec['bound_by']}), max_abs_err {rec['max_abs_err']:.3g}"
-              + (f", rows differing {rec['rows_differ']} (near ties "
-                 f"{rec['near_ties']})" if "rows_differ" in rec else "")
-              + ("" if rec["ok"] else "  DISAGREES"), flush=True)
-        if not rec["ok"]:
-            ok = False
-        kernels.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{cu}",
-            "replaces": f"src/repro/kernels/{tpu}",
-            "launches": counts[name],
-            "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": None,
-        })
+        ok &= rec["ok"]
+        kernels.append(kernel_entry(name, rec, cu, tpu, counts[name]))
         if "rows_differ" in rec:
             kernels[-1].update(rows_differ=rec["rows_differ"],
                                near_ties=rec["near_ties"])
@@ -647,6 +865,47 @@ def run(args):
     kernels[-1]["at_C128"] = {k: c128[k] for k in
                               ("ms", "plain_ms", "bound_ms", "max_abs_err",
                                "rows_differ", "near_ties")}
+
+    # -- the codec path: every stored layout, on the same 1M index ----------
+    # driven with every count at 0: the encodes, then each codec's searches
+    ops.reset_launch_counts()
+    codec_idx = encode_codecs(torch, index)
+    f32_recall = {64: recall(searches["fused"][1], gt),
+                  QUALITY_EF: recall(searches[f"fused ef={QUALITY_EF}"][1],
+                                     gt)}
+    if not codec_searches(torch, codec_idx, wl, lo_val, hi_val, gt,
+                          f32_recall, (64, QUALITY_EF)):
+        ok = False
+    layout_counts = ops.layout_counts()
+    print(f"codec path launches: {json.dumps(layout_counts)}", flush=True)
+    never = [f"{k}[{name}]" for k in ("gather_dist", "hop")
+             for name, _, _ in CODECS if layout_counts[f"{k}[{name}]"] == 0]
+    if never:
+        fail(f"codec layouts never launched on the codec path: {never}")
+
+    # each codec layout of gather_dist and hop against its plain version
+    crec = {}
+    for name, cidx in codec_idx.items():
+        for kname, rec in table_kernels(
+                torch, name, cidx.vectors,
+                storage.decode_neighbors(cidx.neighbors), q, ids, hop_args,
+                hop_need).items():
+            crec[f"{kname}[{name}]"] = rec
+    for kname, cu in (("gather_dist", "gather_distance.cu"),
+                      ("hop", "hop.cu")):
+        for name, _, _ in CODECS:
+            key = f"{kname}[{name}]"
+            ok &= crec[key]["ok"]
+            kernels.append(kernel_entry(key, crec[key], cu,
+                                        CODEC_TPU[kname][name],
+                                        layout_counts[key]))
+
+    # index files on the card: the port's packer, zlib without zstandard
+    if not codec_files(torch, codec_idx, wl, lo_val, hi_val,
+                       ("int8", "pq")):
+        print("files: a saved and loaded index differs", flush=True)
+        ok = False
+    del codec_idx
 
     # -- the build kernels against a plain build, at a cut size -------------
     t0 = time.perf_counter()

@@ -7,10 +7,15 @@ hand-written CUDA kernels for Hopper (``csrc/``, dispatched by
 ``kernels/ops.py``); each has a plain torch version (``kernels/ref.py``)
 that the CPU runs and the card is checked against.
 
+Tables may be stored in any of ``repro``'s codecs (``core/storage.py``:
+bf16/f16, int8, PQ with an int8 rerank sidecar, split neighbor ids); the
+search kernels decode the stored rows in registers.
+
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Importing this package imports torch and numpy only: no JAX, nothing of
-``repro``, and neither ``msgpack`` nor ``zstandard`` (loaded where an index
-is saved or loaded).
+``repro``, no ``msgpack`` or ``ml_dtypes`` (index files go through the
+port's own ``core/msgpack_lite.py``), and ``zstandard`` only where an
+index is compressed, when it is installed.
 """
 from repro_torch.core import (
     BuildConfig,

@@ -21,6 +21,11 @@ Two things differ from the JAX engine, neither in results:
     visited, and the stable re-sort of the already sorted list is the
     identity. So the block size never changes results.
 
+Vector tables may be stored in any codec (``core/storage.py``): the hop and
+gather-distance dispatch launch the kernel of the stored layout, and the
+rerank pass decodes through ``storage.decode_rows``. Neighbor tables
+(``SplitNeighbors`` too) widen once, at the top of each search.
+
 ``beam_search`` has the two hop bodies of the JAX engine: a bound whole-hop
 ``hop_fn`` (``kernels/ops.py::hop``) or the composed ``nbr_fn`` body. The
 two-list filtered searches (``result_filter_fn``/``visit_prob_fn``) are not
@@ -76,7 +81,8 @@ def _smallest(x: torch.Tensor, k: int):
 
 
 def beam_search(
-    vectors: torch.Tensor,          # f32[n, d]
+    vectors,                        # [n, d] in any stored layout, or a codec
+                                    # struct (storage.Int8Vectors/PQVectors)
     queries: torch.Tensor,          # f32[B, d]
     entry_ids: torch.Tensor,        # int32[B, E] (-1 for unused)
     nbr_fn: Callable | None,        # int32[B*W] -> int32[B*W, M]
@@ -213,12 +219,16 @@ def tile_frontier(x, expand_width):
 # ---------------------------------------------------------------------------
 
 def search_improvised(vectors, nbrs, queries, L, R, *, logn, m_out, k,
-                      config: SearchConfig | None = None) -> SearchResult:
+                      config: SearchConfig | None = None,
+                      rerank_store=None) -> SearchResult:
     """The paper's query path: beam search on the improvised dedicated
-    graph. L, R: int32[B] per-query inclusive rank ranges; every tensor on
-    one device. ``config.hop_impl`` picks the fused hop kernel, its plain
-    version, or the composed three-op path; ``config.rerank > 0`` re-scores
-    the beam's top-``r`` exactly against ``vectors`` and re-cuts to ``k``.
+    graph. ``vectors`` in any stored layout or a codec struct; ``nbrs`` a
+    neighbor table or ``SplitNeighbors`` (widened once here); L, R:
+    int32[B] per-query inclusive rank ranges; every tensor on one device.
+    ``config.hop_impl`` picks the fused hop kernel, its plain version, or
+    the composed three-op path; ``config.rerank > 0`` re-scores the beam's
+    top-``r`` against ``rerank_store`` (the index's sidecar) or, without
+    one, the stored ``vectors``, decoded to f32, and re-cuts to ``k``.
     """
     config = config or SearchConfig()
     nbrs = storage_mod.decode_neighbors(nbrs)
@@ -245,8 +255,9 @@ def search_improvised(vectors, nbrs, queries, L, R, *, logn, m_out, k,
                       config=config, hop_fn=hop_fn)
     if not r:
         return res
+    store = vectors if rerank_store is None else rerank_store
     ids = res.ids                                          # [B, r]
-    x = vectors[ids.clamp(0, n - 1)].float()               # [B, r, d]
+    x = storage_mod.decode_rows(store, ids.clamp(0, n - 1).long())  # [B,r,d]
     qf = queries.float()
     if config.metric == "ip":
         dd = -torch.einsum("bd,brd->br", qf, x)

@@ -20,9 +20,17 @@ backends; distances agree to f32 tolerance; ``prune``'s kept ids agree
 except where a keep decision is a near tie (dot products summed in another
 order).
 
+Vector tables may be stored in any codec (``core/storage.py``):
+``gather_dist`` and ``hop`` launch the kernel of the table's layout, or
+raise. ``prune`` takes a codec table on ``"torch"`` only: the build runs in
+f32 and encodes afterwards, so the TPU prune kernel's codec body is on no
+path (ROADMAP queue 2, kernel 4), and a codec table on CUDA raises
+``NotImplementedError`` rather than decoding and running the f32 kernel.
+
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero the
 kernel wrappers' launch counters (plain integers on each wrapper, raised
-once per launch and nowhere else).
+once per launch and nowhere else); :func:`layout_counts` reads the
+per-layout counts of ``gather_dist`` and ``hop``.
 """
 from __future__ import annotations
 
@@ -38,7 +46,7 @@ from repro_torch.kernels import ref as _ref
 
 __all__ = [
     "gather_dist", "select_edges", "prune", "hop", "resolve_impl",
-    "launch_counts", "reset_launch_counts", "KERNELS",
+    "launch_counts", "reset_launch_counts", "layout_counts", "KERNELS",
 ]
 
 # kernel name -> its wrapper (each holds a ``launches`` counter)
@@ -54,9 +62,17 @@ def launch_counts() -> dict[str, int]:
     return {name: fn.launches for name, fn in KERNELS.items()}
 
 
+def layout_counts() -> dict[str, int]:
+    """Launches per stored layout, as ``"gather_dist[int8]"`` -> count."""
+    return {f"{name}[{lay}]": c for name, fn in KERNELS.items()
+            for lay, c in getattr(fn, "layout_launches", {}).items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
+        if hasattr(fn, "layout_launches"):
+            fn.layout_launches = dict.fromkeys(fn.layout_launches, 0)
 
 
 def resolve_impl(op: str, impl: str, on: torch.Tensor,
@@ -77,8 +93,9 @@ def resolve_impl(op: str, impl: str, on: torch.Tensor,
 
 
 def gather_dist(q, table, ids, *, metric="l2", impl="auto"):
-    """Fused gather + masked distance: q f32[B, d], table f32[n, d], ids
-    int32[B, M] (-1 masked) -> f32[B, M]."""
+    """Fused gather + masked distance: q f32[B, d], table [n, d] in any
+    stored layout or a codec struct, ids int32[B, M] (-1 masked) ->
+    f32[B, M]."""
     if resolve_impl("gather_dist", impl, q) == "torch":
         return _ref.gather_dist(q, table, ids, metric=metric)
     return _gather.gather_dist_cuda(q, table, ids, metric=metric)
@@ -102,7 +119,8 @@ def prune(cand_ids, cand_dists, table, *, m, alpha=1.0, fill=True,
 
     ``cand_vecs`` [B, C, d]: the already-gathered candidate rows, which the
     plain version reuses (gathers are exact, so results are the same); the
-    kernel gathers its rows from ``table`` itself.
+    kernel gathers its rows from ``table`` itself, and takes f32 tables
+    only: a codec table on CUDA raises ``NotImplementedError``.
     """
     if resolve_impl("prune", impl, cand_ids) == "torch":
         if cand_vecs is not None:
@@ -110,6 +128,12 @@ def prune(cand_ids, cand_dists, table, *, m, alpha=1.0, fill=True,
                                    alpha=alpha, fill=fill)
         return _ref.prune(cand_ids, cand_dists, table, m=m, alpha=alpha,
                           fill=fill)
+    if not (isinstance(table, torch.Tensor)
+            and table.dtype == torch.float32):
+        raise NotImplementedError(
+            "prune: the CUDA kernel takes float32 tables only; its codec "
+            "body is on no path (the build runs in f32 and encodes after): "
+            "see ROADMAP queue 2, kernel 4 (prune codec body)")
     return _prune.prune_cuda(cand_ids, cand_dists, table, m=m, alpha=alpha,
                              fill=fill)
 
@@ -120,7 +144,8 @@ def hop(q, table, nbrs, u, L, R, visited, exp_ok, *, logn, m_out,
     """One whole beam-search hop: edge improvisation + visited test-and-set
     + gather-distance.
 
-    Shapes: q f32[B, d], table f32[n, d], nbrs [n, layers, m], u int32[B,
+    Shapes: q f32[B, d], table [n, d] or a codec struct, nbrs [n, layers,
+    m] or ``SplitNeighbors`` (widened once here), u int32[B,
     W], L/R int32[B*W], visited int32[B, words] (updated IN PLACE),
     exp_ok bool[B, W] -> (nbr int32[B, W*m_out], ndist f32[B, W*m_out],
     nvalid bool[B, W*m_out], visited).

@@ -3,8 +3,10 @@
 Each function is the port of its ``repro/kernels/ref.py`` counterpart and
 runs on any device: the CPU tests use it, the dispatch in ``ops.py`` takes
 it for CPU tensors, and ``chip_smoke.py`` holds every CUDA kernel against
-it on the card. Tables are f32 ``[n, d]`` in this slice (the codec branches
-come with the storage codecs).
+it on the card. Vector tables are f32/bf16/f16 ``[n, d]`` or a codec struct
+(``Int8Vectors``, ``PQVectors``); rows decode to f32 through
+``storage.decode_rows``, as ``repro/kernels/ref.py:56, :233`` do. That is
+the contract the CUDA kernels' in-register decode is held against.
 
 Layouts follow the JAX package's public functions so tests compare like
 with like; ``visited`` bitsets are int32 words with the uint32 bit pattern
@@ -16,6 +18,7 @@ import torch
 
 from repro_torch.core import bitset as _bitset
 from repro_torch.core import segment_tree
+from repro_torch.core import storage as _storage
 
 __all__ = [
     "gather_dist", "edge_scan_valid", "select_edges", "hop", "prune",
@@ -26,14 +29,16 @@ _BIG = 2**30
 _IMIN = -(2**31)
 
 
-def _rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Gather rows at non-negative ``ids`` (clamped into the table, as a
-    JAX gather clamps) as f32."""
-    return table[ids.clamp(0, table.shape[0] - 1)].float()
+def _rows(table, ids: torch.Tensor) -> torch.Tensor:
+    """Gather and decode rows at non-negative ``ids`` (clamped into the
+    table, as a JAX gather clamps) as f32."""
+    return _storage.decode_rows(
+        table, ids.clamp(0, _storage.table_n(table) - 1).long())
 
 
 def gather_dist(q, table, ids, metric="l2"):
-    """q[B, d], table[n, d], ids int32[B, M] (-1 masked) -> f32[B, M].
+    """q[B, d], table[n, d] or a codec struct, ids int32[B, M] (-1 masked)
+    -> f32[B, M].
 
     l2: ``‖x‖² − 2x·q + ‖q‖²``; ip: ``−x·q``; ``+inf`` where ids < 0
     (``repro/kernels/ref.py:43``).
@@ -129,7 +134,8 @@ def hop(q, table, nbrs, u, L, R, visited, exp_ok, *, logn, m_out,
     improvisation for the flattened ``[B*W]`` frontier, the visited
     test-and-set, and the masked gather-distance of the newly visited ids.
 
-    q f32[B, d]; table f32[n, d]; nbrs int32[n, layers, m]; u int32[B, W]
+    q f32[B, d]; table [n, d] or a codec struct; nbrs int32[n, layers, m];
+    u int32[B, W]
     (-1 inactive); L/R int32[B*W]; visited int32[B, words], updated IN
     PLACE; exp_ok bool[B, W].
 
@@ -154,7 +160,8 @@ def prune(cand_ids, cand_dists, table, *, m, alpha=1.0, fill=True):
     (``repro/kernels/ref.py:207``).
 
     ``cand_ids`` int32[B, C] (-1 invalid); ``cand_dists`` f32[B, C] squared
-    distance to each node (inf for invalid slots); ``table`` f32[n, d].
+    distance to each node (inf for invalid slots); ``table`` [n, d] or a
+    codec struct, decoded per row.
     Returns int32[B, m] kept ids, -1 padded.
     """
     return prune_vecs(cand_ids, cand_dists, _rows(table, cand_ids), m=m,

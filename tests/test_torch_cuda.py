@@ -5,15 +5,18 @@ a fixture). On the card, run ``python -m pytest -m cuda
 tests/test_torch_cuda.py``. This file imports torch and the port only, so
 it runs where JAX is not installed. Small shapes that reach the kernels' edge
 cases: d not a multiple of 4 (the scalar load path), n not a multiple of
-32, bit 31 of a visited word, -1 everywhere, ip, alpha > 1, no fill.
-Integers are bit-identical; distances agree within 1e-5 of the magnitude
-of their terms (``‖q‖² + ‖x‖²``; both sum d products in other orders).
+32, bit 31 of a visited word, -1 everywhere, ip, alpha > 1, no fill, and
+every stored layout of the vector table (f32, bf16, f16, int8 + scales, PQ
+at dsub = 4 and, for d = 13, dsub = 1). Integers are bit-identical;
+distances agree within 1e-5 of the magnitude of their terms (``‖q‖² +
+‖x‖²`` of the decoded row; both sum d products in other orders).
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch.core import bitset
+from repro_torch.core import storage
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.edge_select import select_edges_cuda
 from repro_torch.kernels.gather_distance import gather_dist_cuda
@@ -21,6 +24,14 @@ from repro_torch.kernels.hop import hop_cuda
 from repro_torch.kernels.prune import prune_cuda
 
 pytestmark = pytest.mark.cuda
+
+LAYOUTS = {
+    "f32": storage.StorageConfig(),
+    "bf16": storage.StorageConfig.compact("bfloat16"),
+    "f16": storage.StorageConfig.compact("float16"),
+    "int8": storage.StorageConfig.int8(),
+    "pq": storage.StorageConfig.pq(),
+}
 
 
 @pytest.fixture
@@ -34,7 +45,8 @@ def _close(got, want, q, table, ids):
     assert torch.equal(torch.isfinite(got), torch.isfinite(want))
     fin = torch.isfinite(want)
     qq = (q * q).sum(-1, keepdim=True).expand_as(want)
-    xx = (table * table).sum(-1)[ids.clamp_min(0).long()]
+    dec = storage.decode_vectors(table)
+    xx = (dec * dec).sum(-1)[ids.clamp_min(0).long()]
     tol = 1e-5 * (qq + xx)
     assert bool(((got - want).abs() <= tol)[fin].all())
 
@@ -61,17 +73,21 @@ def _problem(dev, n=333, d=24, m=4, B=7, W=3, seed=0):
                 vis=vis.to(**to))
 
 
+@pytest.mark.parametrize("layout", list(LAYOUTS))
 @pytest.mark.parametrize("d", [24, 13, 128])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_gather_dist(dev, d, metric):
+def test_gather_dist(dev, d, metric, layout):
     p = _problem(dev, d=d)
+    table = storage.encode_vectors(p["table"], LAYOUTS[layout])
     ids = torch.randint(-1, p["n"], (5, 37), device=dev, dtype=torch.int32)
     ids[1] = -1
     q = p["q"][:5].contiguous()
-    got = gather_dist_cuda(q, p["table"], ids, metric=metric)
-    want = ref.gather_dist(q, p["table"], ids, metric=metric)
+    ops.reset_launch_counts()
+    got = gather_dist_cuda(q, table, ids, metric=metric)
+    assert ops.layout_counts()[f"gather_dist[{layout}]"] == 1
+    want = ref.gather_dist(q, table, ids, metric=metric)
     if metric == "l2":
-        _close(got, want, q, p["table"], ids)
+        _close(got, want, q, table, ids)
     else:
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
@@ -98,11 +114,13 @@ def test_select_edges(dev, skip_layers, case):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("layout", list(LAYOUTS))
 @pytest.mark.parametrize("d", [24, 13])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
-def test_hop(dev, d, metric):
+def test_hop(dev, d, metric, layout):
     p = _problem(dev, d=d)
-    args = (p["q"], p["table"], p["nbrs"], p["u"], p["Lw"], p["Rw"])
+    table = storage.encode_vectors(p["table"], LAYOUTS[layout])
+    args = (p["q"], table, p["nbrs"], p["u"], p["Lw"], p["Rw"])
     vk, vp = p["vis"].clone(), p["vis"].clone()
     got = hop_cuda(*args, vk, p["exp_ok"], logn=p["logn"], m_out=8,
                    metric=metric)
@@ -112,7 +130,7 @@ def test_hop(dev, d, metric):
         assert torch.equal(got[i], want[i])
     assert got[3] is vk
     if metric == "l2":
-        _close(got[1], want[1], p["q"], p["table"], got[0])
+        _close(got[1], want[1], p["q"], table, got[0])
     else:
         torch.testing.assert_close(got[1], want[1], rtol=1e-5, atol=1e-4)
     # the dispatch's auto picks the kernel on CUDA tensors, and the
@@ -127,6 +145,9 @@ def test_hop(dev, d, metric):
     counts = ops.launch_counts()
     assert counts["hop"] == 1 and counts["select_edges"] == 1
     assert counts["gather_dist"] == 1
+    layouts = ops.layout_counts()
+    assert layouts[f"hop[{layout}]"] == 1
+    assert layouts[f"gather_dist[{layout}]"] == 1
 
 
 @pytest.mark.parametrize("alpha,fill", [(1.0, True), (1.3, True),
@@ -160,3 +181,32 @@ def test_cuda_rejects_bad_inputs(dev):
         gather_dist_cuda(p["q"], p["table"].t(), p["u"])
     with pytest.raises(ValueError, match="CUDA"):
         gather_dist_cuda(p["q"].cpu(), p["table"], p["u"])
+    # a codec struct's every leaf is checked
+    i8 = storage.encode_vectors(p["table"], LAYOUTS["int8"])
+    with pytest.raises(TypeError):
+        gather_dist_cuda(p["q"], i8._replace(scales=i8.scales.double()),
+                         p["u"])
+    with pytest.raises(ValueError, match="CUDA"):
+        gather_dist_cuda(p["q"], i8._replace(codes=i8.codes.cpu()), p["u"])
+    pq = storage.encode_vectors(p["table"], LAYOUTS["pq"])
+    with pytest.raises(ValueError, match="agree"):
+        gather_dist_cuda(p["q"], pq._replace(
+            codebook=pq.codebook[:, :8].contiguous()),
+                         p["u"])
+    # the prune kernel takes f32 only: a codec table raises, never decodes
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.prune(p["u"], p["u"].float(), i8, m=4, impl="cuda")
+
+
+@pytest.mark.parametrize("layout", ["bf16", "f16", "int8", "pq"])
+def test_encode_on_card_matches_cpu(dev, layout):
+    """The encodes run where the table lives; on the card they give the
+    CPU's bits (the PQ encode sums in numpy's order, one IEEE op each)."""
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn((5000, 128), generator=g)
+    on_card = storage.encode_vectors(x.to(dev), LAYOUTS[layout])
+    on_cpu = storage.encode_vectors(x, LAYOUTS[layout])
+    for a, b in zip(*(t if isinstance(t, tuple) else (t,)
+                      for t in (on_card, on_cpu))):
+        assert a.is_cuda
+        assert torch.equal(a.cpu(), b)

@@ -1,7 +1,9 @@
 """The port stands alone: no JAX, nothing of ``repro``, no hidden fallback.
 
   * No file under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
-    ``jax`` or ``repro`` (an AST scan).
+    ``jax``, ``repro``, ``msgpack`` or ``ml_dtypes`` (an AST scan), nor
+    ``zstandard`` outside ``compressio.py``, which imports it where it
+    compresses and only when it is installed.
   * ``import repro_torch`` works with ``jax``, ``repro``, ``msgpack``,
     ``zstandard`` and ``ml_dtypes`` blocked (the card's machine lacks the
     last three).
@@ -46,8 +48,10 @@ def _port_files():
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
 def test_no_jax_or_repro_imports(path):
-    bad = {m for m in _imports(path)
-           if m.split(".")[0] in ("jax", "jaxlib", "repro")}
+    banned = {"jax", "jaxlib", "repro", "msgpack", "ml_dtypes"}
+    if path.name != "compressio.py":
+        banned.add("zstandard")
+    bad = {m for m in _imports(path) if m.split(".")[0] in banned}
     assert not bad, f"{path} imports {sorted(bad)}"
 
 
@@ -58,7 +62,7 @@ def test_import_with_reference_and_codec_packages_blocked():
         "    sys.modules[m] = None\n"
         "import repro_torch\n"
         "from repro_torch.kernels import ops, ref, _build\n"
-        "from repro_torch.core import build, search, index\n"
+        "from repro_torch.core import build, search, index, msgpack_lite\n"
         "import repro_torch.data, repro_torch.compressio\n"
         "print('ok')\n"
     )
