@@ -47,8 +47,34 @@ the full-size run, one card). It
      holds every array and the search ids equal;
   9. builds n = 131,072 twice, with the kernels and all-plain, and holds
      the tables and their search recall against each other;
-  10. prints one JSON line of kernel records (each codec layout as e.g.
-     ``gather_dist[int8]``) and, last, the device line.
+  10. drives the embed -> build -> serve path of ``launch/serve.py`` with
+     every count at 0, at qwen3-0.6b's full width (28 layers, d = 1024,
+     params f32, compute bf16, seeded random weights): embeds n = 131,072
+     items of 32 tokens (the launcher's draw, 256 items per call), builds
+     an index over them (``BuildConfig(m=16, ef_construction=128,
+     chunk=4096)``), warms a ``ServingEngine(ef=64, k_bucket=10,
+     max_batch=64)`` and serves 1,000 requests; prints embed tokens/s,
+     build s, QPS, p50/p99 latency, cache entries before and after warmup
+     and after serving, recall@10 against ``brute_force``, the same
+     requests served with every op on plain torch, a 4,096-item subsample
+     embedded with attention on plain torch, and peak device memory;
+     fails if flash_attention, prune, gather_dist or hop never launched,
+     if serving added a cache entry, if recall is not within 0.01 of the
+     all-plain path's, or if a subsample row's cosine to the plain
+     attention's is below 0.9999 or an element differs by more than 0.05;
+     profiles one embed call;
+  11. holds the flash-attention kernel against its plain version at the
+     path's shape, at S = 4,096 and over a variant grid (window, softcap,
+     bidirectional, q_offset; q, k and v in the projections' transposed
+     layout; f32 within 1e-5, bf16 within one ulp and the f32 tolerance,
+     see ``bf16_tol``), with SDPA's time beside it where SDPA computes the
+     same function; the prune kernel at d = 1,024 and C = 144 on one build
+     chunk's own candidates (``prune_check_wide``); and gather_dist and
+     the hop on the lm index at the served batch's shapes (B = 64, d =
+     1,024), as in step 5;
+  12. prints one JSON line of kernel records (each codec layout as e.g.
+     ``gather_dist[int8]``; flash_attention with its launches on the lm
+     serve path) and, last, the device line.
 
 It exits non-zero, printing no result, when there is no CUDA card, when
 the repo's sources are not beside it, or when any phase fails.
@@ -84,6 +110,49 @@ PRUNE_MAX_DIFF = 1e-3     # prune: share of rows allowed to differ
 MIN_RECALL = 0.70
 QUALITY_EF = 256
 WITNESS_N = 131072        # the kernel-vs-plain build witness's size
+MAIN_KERNELS = ("gather_dist", "select_edges", "hop", "prune")
+
+# The embed -> build -> serve path (launch/serve.py) at qwen3-0.6b's full
+# width: params f32, compute bf16, seeded random weights (no checkpoint is
+# in the repository).
+LM_ARCH = "qwen3-0.6b"
+LM_N = 131072             # items embedded and indexed
+LM_SEQ = 32               # tokens per item (the launcher's default)
+LM_BATCH = 256            # items per embed call
+LM_BUILD_CHUNK = 4096     # nodes per build step: [4096, 144, 1024] f32 is
+                          # a 2.4 GB candidate block
+LM_QUERIES = 1000
+LM_EF, LM_K = 64, 10
+LM_SUBSAMPLE = 4096       # items re-embedded with attention on plain torch
+# kernel vs plain attention on the subsample: every row's cosine, and the
+# largest |difference| of an embedding element (0.99998 and 0.022 measured
+# on the H100: both paths round each layer's attention to bf16, and those
+# ulps carry through 28 layers)
+LM_MIN_COSINE = 0.9999
+LM_MAX_ABS_DIFF = 0.05
+LM_MAX_BATCH = 64         # the engine's batch: the served kernels' B
+PEAK_BF16_FLOPS = 989e12  # dense tensor-core peak, bf16 and f16
+FLASH_F32_TOL = 1e-5      # flash vs plain in f32: sums in other orders
+PEAK_FLOPS = {"torch.float32": PEAK_F32_FLOPS,
+              "torch.bfloat16": PEAK_BF16_FLOPS,
+              "torch.float16": PEAK_BF16_FLOPS}
+# flash attention: the path's shape, one long shape and the variant grid
+# (B, Hq, Hkv, Sq, Skv, Dh, dtype name, keyword arguments)
+FLASH_SHAPES = {
+    "path": (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, "bfloat16", {}),
+    "long": (1, 16, 8, 4096, 4096, 128, "bfloat16", {}),
+    "path f32": (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, "float32", {}),
+    "window": (4, 16, 8, 512, 512, 128, "bfloat16", {"window": 128}),
+    "window f32": (4, 16, 8, 512, 512, 128, "float32", {"window": 128}),
+    "softcap": (4, 16, 8, 256, 256, 256, "bfloat16", {"softcap": 50.0}),
+    "softcap f32": (4, 16, 8, 256, 256, 256, "float32", {"softcap": 50.0}),
+    "bidirectional": (4, 16, 16, 200, 200, 64, "bfloat16",
+                      {"causal": False}),
+    "bidirectional f32": (4, 16, 16, 200, 200, 64, "float32",
+                          {"causal": False}),
+    "q_offset": (4, 16, 8, 100, 256, 128, "bfloat16", {"q_offset": 156}),
+    "q_offset f32": (4, 16, 8, 100, 256, 128, "float32", {"q_offset": 156}),
+}
 
 
 def fail(msg: str) -> None:
@@ -115,9 +184,10 @@ def time_ms(torch, fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             peak_flops: float = PEAK_F32_FLOPS) -> tuple[float, str]:
     tb = nbytes / PEAK_BYTES_PER_S * 1e3
-    tf = flops / PEAK_F32_FLOPS * 1e3
+    tf = flops / peak_flops * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -404,6 +474,47 @@ def codec_searches(torch, codec_idx, wl, lo_val, hi_val, gt, f32_recall,
     return ok
 
 
+def frontier(torch, index, queries, L, R, W, gen) -> dict:
+    """One beam step's inputs on ``index`` for ``queries`` over rank
+    ranges [L, R]: W frontier nodes per query drawn inside its range, 90%
+    of them expandable, 32 in-range ids already visited; the edges the
+    plain select_edges gives them (the gather's ids, [B, W * m]) and the
+    hop's arguments."""
+    from repro_torch.core import bitset
+    from repro_torch.kernels import ref
+
+    dev = torch.device("cuda", 0)
+    nbrs, logn, m_out = index.neighbors, index.logn, index.m
+    B = len(queries)
+    q = torch.as_tensor(queries, device=dev)
+    Lt = torch.as_tensor(L, device=dev)
+    Rt = torch.as_tensor(R, device=dev)
+    span = (Rt - Lt + 1).to(torch.float64)
+    u = (Lt[:, None] + (torch.rand((B, W), generator=gen, device=dev,
+                                   dtype=torch.float64) * span[:, None])
+         .floor().to(torch.int32)).contiguous()
+    exp_ok = torch.rand((B, W), generator=gen, device=dev) < 0.9
+    Lw = Lt.repeat_interleave(W).contiguous()
+    Rw = Rt.repeat_interleave(W).contiguous()
+    vis0 = bitset.make(B, index.n, device=dev)
+    seen_ids = (Lt[:, None] + (torch.rand((B, 32), generator=gen, device=dev,
+                                          dtype=torch.float64) * span[:, None])
+                .floor().to(torch.int32))
+    bitset.test_and_set(vis0, seen_ids, torch.ones_like(seen_ids,
+                                                         dtype=torch.bool))
+    us = u.reshape(-1).contiguous()
+    edges = ref.select_edges(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
+
+    def hop_need(nb, out):
+        return edge_positions_needed(torch, nb, us, Lw, Rw, logn,
+                                     out.reshape(B * W, m_out))
+
+    return dict(q=q, us=us, Lw=Lw, Rw=Rw,
+                ids=edges.reshape(B, W * m_out).contiguous(),
+                hop_args=(u, Lw, Rw, vis0, exp_ok, logn, m_out),
+                hop_need=hop_need)
+
+
 def table_kernels(torch, name, table, nbrs, q, ids, hop_args,
                   hop_need) -> dict:
     """gather_dist and hop on one stored vector table against their plain
@@ -539,9 +650,9 @@ def kernel_entry(name, rec, cu, tpu, launches) -> dict:
             "library_ms": None}
 
 
-def profile_search(torch, search) -> None:
-    """One search under torch.profiler: device busy share of the wall time
-    and the kernels that took the most device time."""
+def profile_search(torch, search, tag="search fused") -> None:
+    """One call of ``search`` under torch.profiler: device busy share of
+    the wall time and the kernels that took the most device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -562,15 +673,390 @@ def profile_search(torch, search) -> None:
               if str(e.device_type).endswith("CUDA") and dev_us(e) > 0]
     busy = sum(dev_us(e) for e in events)
     if not busy:
-        print("profile[search fused]: device time not measured (the "
+        print(f"profile[{tag}]: device time not measured (the "
               "profiler saw no device activity)", flush=True)
         return
     top = sorted(events, key=dev_us, reverse=True)[:8]
-    print(f"profile[search fused]: wall {wall_us / 1e3:.2f} ms under the "
+    print(f"profile[{tag}]: wall {wall_us / 1e3:.2f} ms under the "
           f"profiler, device busy {busy / 1e3:.2f} ms "
           f"({100 * busy / wall_us:.1f}%); top device time: " + "; ".join(
               f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
               for e in top), flush=True)
+
+
+def bf16_tol(torch, got, want):
+    """Per element: one bf16 ulp at the larger magnitude of the two, plus
+    FLASH_F32_TOL. Kernel and plain version each round one f32 result to
+    bf16 once, and those f32 results differ by their sum order, up to the
+    f32 gate's 1e-5 absolute: near 0, where V's terms cancel, that is more
+    than an ulp of the output."""
+    _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8) \
+        + FLASH_F32_TOL
+
+
+def attention_pairs(Sq, Skv, causal, window, q_offset) -> int:
+    """(query, key) pairs a causal / windowed attention must score."""
+    qpos = np.arange(Sq)[:, None] + q_offset
+    kpos = np.arange(Skv)[None, :]
+    ok = np.ones((Sq, Skv), bool)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    return int(ok.sum())
+
+
+def flash_checks(torch) -> dict:
+    """The flash-attention kernel against its plain version on the card at
+    the embed path's shape, one long shape and the variant grid: f32
+    within 1e-5, bf16 within ``bf16_tol``; ms, plain ms, the bound (bytes
+    at 3.35 TB/s or flops at the input type's peak) and, where SDPA
+    computes the same function (causal or not, no window, softcap or
+    offset), its ms as library_ms."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    out = {}
+    for name, (B, Hq, Hkv, Sq, S, Dh, dt, kw) in FLASH_SHAPES.items():
+        dtype = getattr(torch, dt)
+        # q, k and v in the path's layout: [B, S, H, Dh] viewed as
+        # [B, H, S, Dh]
+        q = torch.randn((B, Sq, Hq, Dh), generator=gen, device=dev,
+                        dtype=dtype).transpose(1, 2)
+        k = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
+                        dtype=dtype).transpose(1, 2)
+        v = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
+                        dtype=dtype).transpose(1, 2)
+        got = flash_attention_cuda(q, k, v, **kw)
+        want = ref.attention(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs()
+        if dtype == torch.float32:
+            good = float(err.max()) <= FLASH_F32_TOL
+        else:
+            tol = bf16_tol(torch, got, want)
+            good = bool((err <= tol).all())
+            if not good:
+                bad = (err - tol).argmax()
+                print(f"flash_attention[{name}]: worst element got "
+                      f"{float(got.flatten()[bad])}, plain "
+                      f"{float(want.flatten()[bad])}", flush=True)
+        iters = 5 if S >= 4096 else 20
+        kms = time_ms(torch, lambda i: flash_attention_cuda(q, k, v, **kw),
+                      iters=iters)
+        pms = time_ms(torch, lambda i: ref.attention(q, k, v, **kw),
+                      iters=3 if S >= 4096 else 10)
+        lms = None
+        if not ({"window", "softcap"} & set(kw)) and not kw.get("q_offset"):
+            lms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
+                q, k, v, is_causal=kw.get("causal", True), enable_gqa=True),
+                iters=iters)
+        pairs = attention_pairs(Sq, S, kw.get("causal", True),
+                                kw.get("window"), kw.get("q_offset", 0))
+        esz = got.element_size()
+        nbytes = (2 * B * Hq * Sq * Dh + 2 * B * Hkv * S * Dh) * esz
+        flops = 4.0 * B * Hq * pairs * Dh
+        bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[str(dtype)])
+        rec = dict(ok=good, max_abs_err=float(err.max()), ms=kms,
+                   plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
+                   shape=f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={S} Dh={Dh} "
+                         f"{dt}"
+                         + (f" {json.dumps(kw)}" if kw else " causal"))
+        out[name] = rec
+        print(f"kernel flash_attention[{name}] [{rec['shape']}]: "
+              f"{kms:.4f} ms, plain {pms:.4f} ms, SDPA "
+              + ("n/a" if lms is None else f"{lms:.4f} ms")
+              + f", bound {bms:.4f} ms ({by}), max_abs_err "
+              f"{rec['max_abs_err']:.3g}" + ("" if good else "  DISAGREES"),
+              flush=True)
+        del q, k, v, got, want, err
+    return out
+
+
+def prune_work(torch, cand, du, cvec, m, alpha=1.0,
+               fill=True) -> tuple[int, int, int]:
+    """What the prune of these inputs must do, as ``kernels/ref.py::
+    prune_vecs`` decides it: (distinct valid ids over the whole batch, the
+    table rows it must read once; valid candidates left after each node's
+    dedup, summed; dot products the sweeps need: at each keep, one with
+    every candidate it could still suppress, i.e. valid, not taken, not
+    yet suppressed and not the keep itself). Each live candidate's norm
+    is one dot more."""
+    B, C = cand.shape
+    dev = cand.device
+    pos = torch.arange(C, device=dev)
+    valid = (cand >= 0) & torch.isfinite(du)
+    same = cand[:, :, None] == cand[:, None, :]
+    earlier = (du[:, :, None] < du[:, None, :]) | (
+        (du[:, :, None] == du[:, None, :]) & (pos[:, None] < pos[None, :]))
+    valid &= ~(same & earlier & valid[:, :, None]
+               & valid[:, None, :]).any(dim=1)
+    del same, earlier
+    union = int(torch.unique(cand[valid]).numel())
+    live_rows = int(valid.sum())
+    xx = (cvec * cvec).sum(-1)
+    supp = torch.zeros_like(valid)
+    taken = torch.zeros_like(valid)
+    rows = torch.arange(B, device=dev)
+    dots = 0
+    for _ in range(m):
+        avail = valid & ~taken
+        fillable = avail & supp if fill else torch.zeros_like(avail)
+        cls = torch.where(avail & ~supp, 0, torch.where(fillable, 1, 2))
+        cmin = cls.amin(dim=1, keepdim=True)
+        pick = (cls == cmin) & (cmin < 2)
+        dmask = torch.where(pick, du, torch.inf)
+        dmin = dmask.amin(dim=1, keepdim=True)
+        p = torch.where(pick & (dmask == dmin), pos, C).amin(dim=1)
+        keep = cmin[:, 0] == 0
+        p_safe = torch.where(cmin[:, 0] < 2, p, 0)
+        open_ = avail & ~supp & (pos[None, :] != p[:, None]) & keep[:, None]
+        dots += int(open_.sum())
+        xy = torch.einsum("bcd,bd->bc", cvec, cvec[rows, p_safe])
+        cc = (xx - 2.0 * xy + xx[rows, p_safe][:, None]).clamp_min(0.0)
+        supp |= keep[:, None] & (alpha * cc < du)
+        taken |= pos[None, :] == p[:, None]
+    return union, live_rows, dots
+
+
+def prune_check_wide(torch, index, efc) -> dict:
+    """The prune kernel against its plain version at the lm index's width
+    (d = 1024) on one build chunk's own inputs: the nodes of one
+    LM_BUILD_CHUNK at a search level (segments of 4,096 at n = 131,072),
+    their candidates formed as ``core/build.py::_build_search_level``
+    forms them (own child's edges plus ``search_fixed_layer(k=efc)`` over
+    the sibling half: C = m + efc = 144 distinct ids), the child level
+    read from the built table, which the later levels never change. Rows
+    may differ only at near ties. The bound counts what these inputs
+    need (``prune_work``)."""
+    from repro_torch import SearchConfig
+    from repro_torch.core.search import search_fixed_layer
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prune import prune_cuda, smem_plan
+
+    table = index.vectors
+    nbrs = index.neighbors
+    n, d = table.shape
+    dev = table.device
+    m, logn = index.m, index.logn
+    C = m + efc
+    lay = max(logn - 12, 0)
+    size = 1 << (logn - lay)
+    half = size // 2
+    s = (n // 2 // LM_BUILD_CHUNK) * LM_BUILD_CHUNK
+    e = min(n, s + LM_BUILD_CHUNK)
+    Bp = e - s
+    u = torch.arange(s, e, dtype=torch.int32, device=dev)
+    lo = (u >> (logn - lay)) << (logn - lay)
+    mid = lo + half - 1
+    in_left = u <= mid
+    res = search_fixed_layer(
+        table, nbrs, table[s:e], torch.where(in_left, mid + 1, lo),
+        torch.where(in_left, lo + size - 1, mid), layer=lay + 1, k=efc,
+        config=SearchConfig(ef=efc))
+    cand = torch.cat([nbrs[s:e, lay + 1, :], res.ids], dim=1)
+    valid = (cand >= 0) & (cand != u[:, None]) & (cand < n)
+    cand = torch.where(valid, cand, -1).to(torch.int32).contiguous()
+    cvec = table[cand.clamp_min(0).long()]
+    du = torch.where(valid, ((cvec - table[s:e][:, None, :]) ** 2).sum(-1),
+                     torch.inf).contiguous()
+    got = prune_cuda(cand, du, table, m=m)
+    want = ref.prune(cand, du, table, m=m)
+    diff = (got != want).any(dim=1).nonzero()[:, 0].tolist()
+    ties = sum(prune_near_tie(torch, cand[r], du[r], cvec[r], m, 1.0, True)
+               for r in diff)
+    good = ties == len(diff) and len(diff) <= PRUNE_MAX_DIFF * Bp
+    kms = time_ms(torch, lambda i: prune_cuda(cand, du, table, m=m))
+    pms = time_ms(torch, lambda i: ref.prune(cand, du, table, m=m), iters=3)
+    union, live, dots = prune_work(torch, cand, du, cvec, m)
+    del cvec
+    bms, by = bound_ms(Bp * C * 8 + union * d * 4 + Bp * m * 4,
+                       (dots + live) * 2.0 * d)
+    staged, smem = smem_plan(C, d)
+    rec = dict(ok=good, max_abs_err=float((got - want).abs().max()),
+               ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
+               rows_differ=len(diff), near_ties=ties, staged_rows=staged,
+               smem_bytes=smem, layer=lay, segment=size,
+               rows_distinct=union, rows_live=live, dots=dots,
+               shape=f"B={Bp} C={C} d={d} m={m}")
+    print(f"kernel prune [{rec['shape']}, one build chunk at layer {lay} "
+          f"(segments of {size}), {staged} of {C} rows in {smem} B of "
+          f"shared memory; {live} live candidates, {union} distinct table "
+          f"rows, {dots} dots]: {kms:.4f} ms, plain {pms:.4f} ms, bound "
+          f"{bms:.4f} ms ({by}), rows differing {len(diff)} (near ties "
+          f"{ties})" + ("" if good else "  DISAGREES"), flush=True)
+    return rec
+
+
+def lm_serve(torch, n_items) -> tuple[dict, bool]:
+    """The embed -> build -> serve path of ``launch/serve.py`` at
+    qwen3-0.6b's full width, every launch counter at 0 before it and read
+    after it. Returns (summary with the counts, every gate passed); the
+    index and the model stay for the kernel checks."""
+    import dataclasses
+
+    from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig, recall
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import embed_corpus
+    from repro_torch.models.api import Model
+    from repro_torch.serve import Request, ServingEngine
+
+    dev = torch.device("cuda", 0)
+    t_phase = time.perf_counter()
+    cfg = get_arch(LM_ARCH)
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(0))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    ok = True
+    out = {"arch": cfg.name, "n": n_items, "seq": LM_SEQ,
+           "embed_batch": LM_BATCH, "build_chunk": LM_BUILD_CHUNK}
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    vectors = embed_corpus(model, params, n_items, LM_SEQ, cfg.vocab,
+                           seed=0, batch=LM_BATCH)
+    embed_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    attrs = rng.uniform(0, 1e6, n_items)
+    t0 = time.perf_counter()
+    index = RangeGraphIndex.build(
+        vectors, attrs, BuildConfig(m=16, ef_construction=2 * LM_EF,
+                                    chunk=LM_BUILD_CHUNK))
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    engine = ServingEngine(index, config=SearchConfig(ef=LM_EF,
+                                                      k_bucket=LM_K),
+                           max_batch=LM_MAX_BATCH)
+    entries0 = engine.stats["compiles"]
+    t0 = time.perf_counter()
+    engine.warmup()
+    warm_s = time.perf_counter() - t0
+    entries1 = engine.stats["compiles"]
+    t0 = time.perf_counter()
+    qv = embed_corpus(model, params, LM_QUERIES, LM_SEQ, cfg.vocab, seed=2,
+                      batch=LM_BATCH)
+    qembed_s = time.perf_counter() - t0
+    los = rng.uniform(0, 5e5, LM_QUERIES)
+    his = los + rng.uniform(1e5, 5e5, LM_QUERIES)
+    t0 = time.perf_counter()
+    for i in range(LM_QUERIES):
+        engine.submit(Request(qv[i], los[i], his[i], k=LM_K))
+    results = engine.flush()
+    serve_s = time.perf_counter() - t0
+    counts = ops.launch_counts()
+    st = engine.stats
+    entries2 = st["compiles"]
+    peak = torch.cuda.max_memory_allocated(dev)
+
+    failed = [r for r in results if isinstance(r, Exception)]
+    if failed:
+        print(f"lm serve: {len(failed)} requests failed: {failed[0]!r}",
+              flush=True)
+        ok = False
+    got = np.stack([r.ids for r in results if not isinstance(r, Exception)])
+    L, R = index.ranks_of(los, his)
+    t0 = time.perf_counter()
+    gt = index.original_ids(index.brute_force(qv, L, R, k=LM_K)[0])
+    gt_s = time.perf_counter() - t0
+    rec = recall(got, gt)
+    plain = ServingEngine(index, config=SearchConfig(
+        ef=LM_EF, k_bucket=LM_K, hop_impl="torch", edge_impl="torch",
+        dist_impl="torch"), max_batch=LM_MAX_BATCH)
+    for i in range(LM_QUERIES):
+        plain.submit(Request(qv[i], los[i], his[i], k=LM_K))
+    t0 = time.perf_counter()
+    pres = plain.flush()
+    plain_s = time.perf_counter() - t0
+    rec_plain = recall(np.stack([r.ids for r in pres]), gt)
+    plain.close()
+    # how hard the data is: recall at a wider beam, and the distance to
+    # the 10th neighbour over the mean distance to 256 random in-range
+    # items (near 1: every item is about as far as the nearest)
+    wide = index.search_ranks(qv, L, R, k=LM_K, config=SearchConfig(
+        ef=4 * LM_EF)).ids.cpu().numpy()
+    rec_wide = recall(index.original_ids(wide), gt)
+    gtd = index.brute_force(qv, L, R, k=LM_K)[1][:, -1]
+    pick = L[:, None] + (rng.random((LM_QUERIES, 256))
+                         * (R - L + 1)[:, None]).astype(np.int64)
+    x = index.vectors[torch.as_tensor(pick, device=dev)]
+    qd = torch.as_tensor(qv, device=dev)[:, None, :]
+    mean_d = ((x - qd) ** 2).sum(-1).mean(1).cpu().numpy()
+    contrast = float(np.mean(gtd / mean_d))
+    del x, qd
+
+    # attention on plain torch for a subsample: the same tokens (the draw
+    # is batch by batch), the same weights
+    sub = min(LM_SUBSAMPLE, n_items)
+    pmodel = Model(dataclasses.replace(cfg, attention_impl="torch"))
+    before = ops.launch_counts()["flash_attention"]
+    pvec = embed_corpus(pmodel, params, sub, LM_SEQ, cfg.vocab, seed=0,
+                        batch=LM_BATCH)
+    plain_flash = ops.launch_counts()["flash_attention"] - before
+    a, b = vectors[:sub].astype(np.float64), pvec.astype(np.float64)
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                            * np.linalg.norm(b, axis=1))
+
+    tokens = n_items * LM_SEQ
+    out.update({
+        "embed_s": round(embed_s, 3),
+        "embed_tokens_per_s": round(tokens / embed_s, 1),
+        "build_s": round(build_s, 3),
+        "warmup_s": round(warm_s, 3),
+        "query_embed_s": round(qembed_s, 3),
+        "serve_s": round(serve_s, 3),
+        "qps": round(engine.qps, 1),
+        "latency_p50_ms": round(st["latency_p50"] * 1e3, 3),
+        "latency_p99_ms": round(st["latency_p99"] * 1e3, 3),
+        "cache_entries": [entries0, entries1, entries2],
+        "recall_at_10": round(rec, 4),
+        "recall_at_10_all_plain": round(rec_plain, 4),
+        f"recall_at_10_ef{4 * LM_EF}": round(rec_wide, 4),
+        "dist10_over_mean_dist": round(contrast, 4),
+        "all_plain_qps": round(LM_QUERIES / plain_s, 1),
+        "ground_truth_s": round(gt_s, 2),
+        "subsample_plain_attention": {
+            "items": sub, "max_abs_diff": float(np.abs(a - b).max()),
+            "min_row_cosine": float(cos.min()),
+            "kernel_launches": plain_flash},
+        "peak_device_memory_gib": round(peak / 2**30, 2),
+        "index_bytes": int(index.nbytes),
+        "launches": counts,
+    })
+    out["phase_s"] = round(time.perf_counter() - t_phase, 1)
+    never = [k for k in ("flash_attention", "prune", "gather_dist", "hop")
+             if counts[k] == 0]
+    if never:
+        fail(f"kernels never launched on the lm serve path: {never}")
+    if entries2 != entries1 or entries1 == entries0:
+        print(f"lm serve: cache entries {entries0} -> {entries1} after "
+              f"warmup -> {entries2} after serving", flush=True)
+        ok = False
+    if abs(rec - rec_plain) > 0.01:
+        print(f"lm serve: recall {rec:.4f} is not within 0.01 of the "
+              f"all-plain path's {rec_plain:.4f}", flush=True)
+        ok = False
+    max_diff = float(np.abs(a - b).max())
+    if cos.min() < LM_MIN_COSINE or max_diff > LM_MAX_ABS_DIFF or \
+            plain_flash != 0 or not np.isfinite(vectors).all() or \
+            vectors.shape != (n_items, cfg.d_model):
+        print("lm serve: the embeddings are not finite of shape "
+              f"({n_items}, {cfg.d_model}) or differ from plain attention's "
+              f"(least row cosine {cos.min():.6f}, max |diff| {max_diff:.4g},"
+              f" plain-path kernel launches {plain_flash})", flush=True)
+        ok = False
+    engine.close()
+    out["index"] = index
+    out["queries"] = (qv, L, R)
+    out["model"] = (model, params)
+    return out, ok
 
 
 def run(args):
@@ -587,12 +1073,10 @@ def run(args):
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig, recall
-    from repro_torch.core import bitset, storage
+    from repro_torch.core import storage
     from repro_torch.data import make_workload, vector_dataset
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.edge_select import select_edges_cuda
-    from repro_torch.kernels.gather_distance import gather_dist_cuda
-    from repro_torch.kernels.hop import hop_cuda
     from repro_torch.kernels.prune import prune_cuda
 
     dev = torch.device("cuda", 0)
@@ -674,7 +1158,7 @@ def run(args):
     searches = {name: timed_search(c) for name, c in runs.items()}
     counts = ops.launch_counts()
     search_counts = {k: counts[k] - before_search[k] for k in counts}
-    never = [k for k, v in counts.items() if v == 0]
+    never = [k for k in MAIN_KERNELS if counts[k] == 0]
     if never:
         fail(f"kernels never launched on the main path: {never}")
 
@@ -752,26 +1236,10 @@ def run(args):
     logn = index.logn
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
-    B, W, m_out = wl.queries.shape[0], 4, index.m
-    q = torch.as_tensor(wl.queries, device=dev)
-    Lt = torch.as_tensor(L, device=dev)
-    Rt = torch.as_tensor(R, device=dev)
-    span = (Rt - Lt + 1).to(torch.float64)
-    u = (Lt[:, None] + (torch.rand((B, W), generator=gen, device=dev,
-                                   dtype=torch.float64) * span[:, None])
-         .floor().to(torch.int32)).contiguous()
-    exp_ok = torch.rand((B, W), generator=gen, device=dev) < 0.9
-    Lw = Lt.repeat_interleave(W).contiguous()
-    Rw = Rt.repeat_interleave(W).contiguous()
-    vis0 = bitset.make(B, n, device=dev)
-    seen_ids = (Lt[:, None] + (torch.rand((B, 32), generator=gen, device=dev,
-                                          dtype=torch.float64) * span[:, None])
-                .floor().to(torch.int32))
-    bitset.test_and_set(vis0, seen_ids, torch.ones_like(seen_ids,
-                                                         dtype=torch.bool))
+    fr = frontier(torch, index, wl.queries, L, R, 4, gen)
+    q, us, Lw, Rw, m_out = fr["q"], fr["us"], fr["Lw"], fr["Rw"], index.m
 
     # edge_select at F = B*W
-    us = u.reshape(-1).contiguous()
     F = us.shape[0]
     got = select_edges_cuda(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
     want = ref.select_edges(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
@@ -789,13 +1257,7 @@ def run(args):
 
     # gather_dist at [B, W*m_out] ids (the hop's edges), and the fused hop
     # at B queries x W frontier rows
-    ids = want.reshape(B, W * m_out).contiguous()
-    hop_args = (u, Lw, Rw, vis0, exp_ok, logn, m_out)
-
-    def hop_need(nb, out):
-        return edge_positions_needed(torch, nb, us, Lw, Rw, logn,
-                                     out.reshape(F, m_out))
-
+    ids, hop_args, hop_need = fr["ids"], fr["hop_args"], fr["hop_need"]
     records.update(table_kernels(torch, "f32", table, nbrs, q, ids,
                                  hop_args, hop_need))
 
@@ -915,6 +1377,75 @@ def run(args):
           + ("" if good else "  DISAGREES"), flush=True)
     if not good:
         ok = False
+
+    # -- the embed -> build -> serve path at qwen3-0.6b's full width --------
+    # driven with every count at 0; then its kernels against their plain
+    # versions at its shapes
+    if args.lm_n < LM_N:
+        print(f"CUT: lm serve n = {args.lm_n} (full size is {LM_N})",
+              flush=True)
+    lm, good = lm_serve(torch, args.lm_n)
+    lm_index = lm.pop("index")
+    lm_q, lm_L, lm_R = lm.pop("queries")
+    model, params = lm.pop("model")
+    print(f"lm serve[{LM_ARCH}, params f32, compute bf16, n={args.lm_n}, "
+          f"seq={LM_SEQ}, BuildConfig(m=16, ef_construction={2 * LM_EF}, "
+          f"chunk={LM_BUILD_CHUNK}), ServingEngine(ef={LM_EF}, "
+          f"k_bucket={LM_K}, max_batch={LM_MAX_BATCH}), {LM_QUERIES} "
+          "requests]: "
+          f"{json.dumps(lm)}" + ("" if good else "  FAILED"), flush=True)
+    ok &= good
+    toks = np.random.default_rng(3).integers(
+        0, model.cfg.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32)
+    model.embed(params, toks)
+    profile_search(torch, lambda: model.embed(params, toks),
+                   f"embed batch of {LM_BATCH}")
+    del model, params
+    flash = flash_checks(torch)
+    for rec in flash.values():
+        ok &= rec["ok"]
+    wide = prune_check_wide(torch, lm_index, 2 * LM_EF)
+    ok &= wide["ok"]
+    # gather_dist and hop at the served batch's shapes on the d = 1024
+    # index: B = LM_MAX_BATCH queries, the engine's W frontier rows of m
+    fr = frontier(torch, lm_index, lm_q[:LM_MAX_BATCH], lm_L[:LM_MAX_BATCH],
+                  lm_R[:LM_MAX_BATCH], SearchConfig(ef=LM_EF).expand_width,
+                  gen)
+    lm_kernels = table_kernels(torch, "lm", lm_index.vectors,
+                               lm_index.neighbors, fr["q"], fr["ids"],
+                               fr["hop_args"], fr["hop_need"])
+    del lm_index, fr
+    for kname, rec in lm_kernels.items():
+        ok &= rec["ok"]
+        at = kernel_entry(kname, rec, *sources[kname],
+                          lm["launches"][kname])
+        entry = next(e for e in kernels if e["name"] == kname)
+        entry["at_d1024"] = {k: at[k] for k in
+                             ("launches", "max_abs_err", "ms", "plain_ms",
+                              "bound_ms", "bound_by")}
+        entry["at_d1024"]["shape"] = rec["shape"]
+    path = flash["path"]
+    kernels.append({
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:34",
+        "launches": lm["launches"]["flash_attention"],
+        "max_abs_err": path["max_abs_err"],
+        "ms": path["ms"], "plain_ms": path["plain_ms"],
+        "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
+        "library_ms": path["library_ms"], "shape": path["shape"],
+        "max_abs_err_f32": flash["path f32"]["max_abs_err"],
+        "at_S4096": {k: flash["long"][k] for k in
+                     ("ms", "plain_ms", "bound_ms", "bound_by",
+                      "library_ms", "max_abs_err")}})
+    for entry in kernels:
+        if entry["name"] == "prune":
+            entry["at_d1024"] = {k: wide[k] for k in
+                                 ("ms", "plain_ms", "bound_ms", "bound_by",
+                                  "max_abs_err", "rows_differ", "near_ties",
+                                  "staged_rows", "smem_bytes", "layer",
+                                  "rows_distinct", "rows_live", "dots")}
+            entry["lm_path_launches"] = lm["launches"]["prune"]
     if not ok:
         fail("a check failed (see above)")
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -927,6 +1458,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--n", type=int, default=1_000_000,
                     help="dataset size (default: the full 1,000,000)")
+    ap.add_argument("--lm-n", type=int, default=LM_N,
+                    help="items the lm serve path embeds and indexes "
+                         f"(default: the full {LM_N:,})")
     run(ap.parse_args())
 
 

@@ -1,0 +1,18 @@
+"""phi3.5-moe-42b-a6.6b [moe]: 32L d4096 32H (kv=8) d_ff=6400, vocab 32064,
+16 experts top-2. [hf:microsoft/Phi-3.5-MoE-instruct]"""
+from repro_torch.configs.base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="phi3.5-moe-42b-a6.6b",
+    family="moe",
+    n_layers=32,
+    d_model=4096,
+    n_heads=32,
+    n_kv_heads=8,
+    d_ff=6400,
+    vocab=32064,
+    n_experts=16,
+    expert_top_k=2,
+    mlp_kind="swiglu",
+    tie_embeddings=False,
+)

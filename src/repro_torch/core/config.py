@@ -1,7 +1,12 @@
-"""One frozen config for the query pipeline (the port's ``SearchConfig``).
+"""One frozen config for the query pipeline (the port's ``SearchConfig``)
+and the serving layer's bucket math.
 
-Mirrors ``repro/core/config.py::SearchConfig``: frozen and hashable, with
-``k`` per call. The backend tokens are the port's own:
+Mirrors ``repro/core/config.py:48-172, 247-280``: ``SearchConfig`` is
+frozen and hashable (a key of ``serve/executor.py``'s cache), with ``k``
+per call, rounded up to a ``k_bucket`` multiple (:meth:`SearchConfig.
+bucket_k`); :func:`batch_buckets` / :func:`pick_bucket` /
+:func:`batch_bucket` give the power-of-two padded batch shapes. The
+backend tokens are the port's own:
 
   * ``dist_impl`` / ``edge_impl``: ``"auto" | "cuda" | "torch"``;
   * ``hop_impl``: the same plus ``"composed"`` (the three dispatched ops
@@ -14,7 +19,9 @@ from __future__ import annotations
 
 import dataclasses
 
-__all__ = ["SearchConfig"]
+__all__ = [
+    "SearchConfig", "batch_bucket", "batch_buckets", "pick_bucket",
+]
 
 _METRICS = ("l2", "ip")
 _DIST_IMPLS = ("auto", "cuda", "torch")
@@ -27,6 +34,9 @@ class SearchConfig:
     """Frozen query-pipeline knobs.
 
     ef:           dynamic candidate-list size (beam width).
+    k_bucket:     requested k rounds up to the next multiple (clamped to
+                  ``ef``) before it reaches the search, so mixed-k traffic
+                  hits a bounded set of cache keys.
     expand_width: nodes expanded per query per beam iteration (the engine
                   clamps it to ``ef``).
     dist_impl:    gather-distance backend ("auto" | "cuda" | "torch").
@@ -43,6 +53,7 @@ class SearchConfig:
     """
 
     ef: int = 64
+    k_bucket: int = 10
     expand_width: int = 4
     dist_impl: str = "auto"
     edge_impl: str = "auto"
@@ -55,6 +66,8 @@ class SearchConfig:
     def __post_init__(self):
         if int(self.ef) < 1:
             raise ValueError(f"ef must be >= 1, got {self.ef}")
+        if int(self.k_bucket) < 1:
+            raise ValueError(f"k_bucket must be >= 1, got {self.k_bucket}")
         if int(self.expand_width) < 1:
             raise ValueError(
                 f"expand_width must be >= 1, got {self.expand_width}"
@@ -80,3 +93,54 @@ class SearchConfig:
 
     def replace(self, **kw) -> "SearchConfig":
         return dataclasses.replace(self, **kw)
+
+    # -- k bucketing ---------------------------------------------------------
+    def bucket_k(self, k_req: int) -> int:
+        """Round a requested k up to the next ``k_bucket`` multiple,
+        clamped to ``ef`` (the result list only holds ef candidates)."""
+        k_req = int(k_req)
+        if k_req < 1:
+            raise ValueError(f"k must be >= 1, got {k_req}")
+        return min(self.ef, self.k_bucket * -(-k_req // self.k_bucket))
+
+    def k_buckets(self) -> tuple[int, ...]:
+        """Every k :meth:`bucket_k` can emit: ``k_bucket`` multiples below
+        ``ef``, plus the ``ef`` clamp bucket."""
+        out = list(range(self.k_bucket, self.ef, self.k_bucket))
+        out.append(self.ef)
+        return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Batch-shape buckets
+# ---------------------------------------------------------------------------
+
+def batch_buckets(max_batch: int) -> tuple[int, ...]:
+    """The padded batch shapes of a ``max_batch``-sized executor: powers of
+    two below ``max_batch``, then ``max_batch`` itself."""
+    max_batch = int(max_batch)
+    if max_batch < 1:
+        raise ValueError(f"max_batch must be >= 1, got {max_batch}")
+    out = []
+    p = 1
+    while p < max_batch:
+        out.append(p)
+        p <<= 1
+    out.append(max_batch)
+    return tuple(out)
+
+
+def pick_bucket(b: int, buckets: tuple[int, ...]) -> int:
+    """Smallest bucket of an ascending ladder holding ``b`` rows."""
+    b = int(b)
+    if b < 1:
+        raise ValueError(f"batch size must be >= 1, got {b}")
+    for bb in buckets:
+        if bb >= b:
+            return bb
+    raise ValueError(f"batch size {b} exceeds max_batch {buckets[-1]}")
+
+
+def batch_bucket(b: int, max_batch: int) -> int:
+    """:func:`pick_bucket` over the default :func:`batch_buckets` ladder."""
+    return pick_bucket(b, batch_buckets(max_batch))

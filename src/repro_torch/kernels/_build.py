@@ -32,7 +32,8 @@ __all__ = [
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("gather_distance", "edge_select", "hop", "prune")
+SOURCES = ("gather_distance", "edge_select", "hop", "prune",
+           "flash_attention")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

@@ -18,7 +18,9 @@
 ``select_edges`` and ``hop``'s integer outputs are bit-identical across
 backends; distances agree to f32 tolerance; ``prune``'s kept ids agree
 except where a keep decision is a near tie (dot products summed in another
-order).
+order). ``flash_attention`` agrees to f32 tolerance (the output rounded
+once to q's dtype), except on a row that sees no key (kernel 0, plain
+version the mean of V).
 
 Vector tables may be stored in any codec (``core/storage.py``):
 ``gather_dist`` and ``hop`` launch the kernel of the table's layout, or
@@ -39,14 +41,16 @@ import torch
 from repro_torch.core import bitset as _bitset
 from repro_torch.core import storage as _storage
 from repro_torch.kernels import edge_select as _edge_select
+from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gather_distance as _gather
 from repro_torch.kernels import hop as _hop
 from repro_torch.kernels import prune as _prune
 from repro_torch.kernels import ref as _ref
 
 __all__ = [
-    "gather_dist", "select_edges", "prune", "hop", "resolve_impl",
-    "launch_counts", "reset_launch_counts", "layout_counts", "KERNELS",
+    "gather_dist", "select_edges", "prune", "hop", "flash_attention",
+    "resolve_impl", "launch_counts", "reset_launch_counts", "layout_counts",
+    "KERNELS",
 ]
 
 # kernel name -> its wrapper (each holds a ``launches`` counter)
@@ -55,6 +59,7 @@ KERNELS = {
     "select_edges": _edge_select.select_edges_cuda,
     "hop": _hop.hop_cuda,
     "prune": _prune.prune_cuda,
+    "flash_attention": _flash.flash_attention_cuda,
 }
 
 
@@ -174,3 +179,20 @@ def hop(q, table, nbrs, u, L, R, visited, exp_ok, *, logn, m_out,
                         m_out=m_out, skip_layers=skip_layers, metric=metric)
     return _hop.hop_cuda(q, table, nbrs, u, L, R, visited, exp_ok, logn=logn,
                          m_out=m_out, skip_layers=skip_layers, metric=metric)
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
+                    scale=None, q_offset=0, impl="auto"):
+    """Blockwise attention: q [B, Hq, Sq, Dh], k / v [B, Hkv, Skv, Dh]
+    (``Hq % Hkv == 0``) -> [B, Hq, Sq, Dh] in q's dtype, f32 inside.
+    ``window`` (query i sees keys j with ``i - window < j``) must be None
+    or >= 1."""
+    if window is not None and int(window) < 1:
+        raise ValueError(f"window must be None or >= 1, got {window}")
+    if resolve_impl("flash_attention", impl, q) == "torch":
+        return _ref.attention(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale,
+                              q_offset=q_offset)
+    return _flash.flash_attention_cuda(
+        q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
+        q_offset=q_offset)

@@ -3,9 +3,9 @@
 Replaces the TPU kernel ``repro/kernels/prune.py::_prune_kernel`` (line
 44). The kernel is ``csrc/prune.cu``; its header says what bounds it on the
 H100 (memory: each build node's C candidate rows) and what its design does
-about that (one block per node, the rows gathered once into shared memory,
-every sweep served from there). The plain version is
-``kernels/ref.py::prune`` (``plain`` here).
+about that (one block per node, the rows gathered once, as many as fit into
+shared memory and the rest read from global memory by the sweeps). The
+plain version is ``kernels/ref.py::prune`` (``plain`` here).
 """
 from __future__ import annotations
 
@@ -17,23 +17,40 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["prune_cuda", "plain", "smem_bytes"]
+__all__ = ["prune_cuda", "plain", "smem_plan"]
 
 plain = _ref.prune
-SMEM_LIMIT = 232448  # the H100's per-block shared-memory ceiling
+# the H100's per-block shared-memory ceiling (232,448 B), less what the
+# kernel declares statically (its argmin scratch)
+SMEM_LIMIT = 232448 - 256
 
 
-def smem_bytes(C: int, d: int) -> int:
-    """Dynamic shared memory the kernel needs for C candidates of dim d."""
-    dp = (d + 3) // 4 * 4
-    return C * dp * 4 + C * 13
+def smem_plan(C: int, d: int) -> tuple[int, int]:
+    """``(staged, bytes)``: how many of the C candidate rows of dim d the
+    kernel stages in dynamic shared memory, and the bytes it asks for.
+
+    All C rows when they fit (C * 13 bytes of per-candidate state beside
+    them); else as many as fit beside a one-row buffer for the keep, the
+    rest read from global memory. Raises ``ValueError`` only where not
+    even the per-candidate state and that buffer fit: C above 17,000 or so
+    at small d, or d above 57,000 or so."""
+    row = (d + 3) // 4 * 4 * 4
+    state = C * 13
+    if state + C * row <= SMEM_LIMIT:
+        return C, state + C * row
+    if state + row > SMEM_LIMIT:
+        raise ValueError(
+            f"prune: C={C} candidates of d={d} need {state + row} B of "
+            f"shared memory even with no row staged (limit {SMEM_LIMIT})")
+    staged = (SMEM_LIMIT - state - row) // row
+    return staged, state + (staged + 1) * row
 
 
 @functools.cache
 def _entry():
     f = _build.library("prune").rt_prune
     f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+        + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
@@ -49,11 +66,7 @@ def prune_cuda(cand_ids, cand_dists, table, *, m, alpha=1.0, fill=True):
     n, d = table.shape
     if tuple(cand_dists.shape) != (B, C):
         raise ValueError("prune: cand_ids and cand_dists shapes differ")
-    if smem_bytes(C, d) > SMEM_LIMIT:
-        raise ValueError(
-            f"prune: C={C} candidates of d={d} need {smem_bytes(C, d)} B "
-            f"of shared memory (limit {SMEM_LIMIT})"
-        )
+    staged, _ = smem_plan(C, d)
     out = torch.empty((B, m), dtype=torch.int32, device=dev)
     if B == 0 or m == 0:
         return out
@@ -62,7 +75,8 @@ def prune_cuda(cand_ids, cand_dists, table, *, m, alpha=1.0, fill=True):
     with torch.cuda.device(dev):
         rc = _entry()(cand_ids.data_ptr(), cand_dists.data_ptr(),
                       table.data_ptr(), out.data_ptr(), B, C, d, n, m,
-                      float(alpha), int(bool(fill)), _build.stream_of(dev))
+                      float(alpha), int(bool(fill)), staged,
+                      _build.stream_of(dev))
     _build.check(rc, "prune", "prune")
     prune_cuda.launches += 1
     return out

@@ -22,7 +22,7 @@ from repro_torch.core import storage as _storage
 
 __all__ = [
     "gather_dist", "edge_scan_valid", "select_edges", "hop", "prune",
-    "prune_vecs",
+    "prune_vecs", "attention",
 ]
 
 _BIG = 2**30
@@ -222,3 +222,59 @@ def prune_vecs(cand_ids, cand_dists, cand_vecs, *, m, alpha=1.0, fill=True):
     if not outs:
         return torch.empty((B, 0), dtype=torch.int32, device=dev)
     return torch.stack(outs, dim=1).to(torch.int32)
+
+
+def attention(q, k, v, *, causal=True, window=None, softcap=None,
+              scale=None, q_offset=0, block_q=None):
+    """Multi-head attention with GQA, a sliding window and a logit softcap
+    (``repro/kernels/ref.py:294``), in f32, returned in q's dtype.
+
+    q [B, Hq, Sq, Dh]; k, v [B, Hkv, Skv, Dh] with ``Hq % Hkv == 0``;
+    ``window``: query i sees keys j with ``i - window < j``; ``softcap``:
+    ``cap * tanh(s / cap)``; ``q_offset``: absolute position of query row
+    0. ``block_q`` evaluates the queries in chunks of that many rows
+    (``O(block_q * Skv)`` live scores), on by itself (512) from Sq = 2048.
+    A row that sees no key gets the mean of V (an additive -1e30 mask), as
+    the reference does; the kernel gives 0 there.
+    """
+    B, Hq, Sq, Dh = q.shape
+    _, Hkv, Skv, _ = k.shape
+    if Hq % Hkv:
+        raise ValueError(f"Hq={Hq} is not a multiple of Hkv={Hkv}")
+    g = Hq // Hkv
+    if scale is None:
+        scale = 1.0 / (Dh ** 0.5)
+    if block_q is None and Sq >= 2048:
+        block_q = 512
+    if block_q and Sq > block_q and Sq % block_q == 0:
+        out = torch.cat([
+            _attn_chunk(q[:, :, s:s + block_q], k, v, g, scale, causal,
+                        window, softcap, q_offset + s, Skv)
+            for s in range(0, Sq, block_q)], dim=2)
+        return out.to(q.dtype)
+    return _attn_chunk(q, k, v, g, scale, causal, window, softcap, q_offset,
+                       Skv).to(q.dtype)
+
+
+def _attn_chunk(q, k, v, g, scale, causal, window, softcap, q_offset, Skv):
+    """One query block against the full K/V (``repro/kernels/ref.py:339``)."""
+    Sq = q.shape[2]
+    dev = q.device
+    qf = q.float() * scale
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    scores = torch.einsum("bhqd,bhkd->bhqk", qf, kf)
+    if softcap is not None:
+        scores = softcap * torch.tanh(scores / softcap)
+    qpos = torch.arange(Sq, device=dev)[:, None] + q_offset
+    kpos = torch.arange(Skv, device=dev)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=dev)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    scores = scores + torch.where(mask, 0.0, -1e30)
+    m = scores.amax(dim=-1, keepdim=True)
+    probs = torch.exp(scores - m)
+    denom = probs.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    return torch.einsum("bhqk,bhkd->bhqd", probs / denom, vf)

@@ -7,9 +7,16 @@ it runs where JAX is not installed. Small shapes that reach the kernels' edge
 cases: d not a multiple of 4 (the scalar load path), n not a multiple of
 32, bit 31 of a visited word, -1 everywhere, ip, alpha > 1, no fill, and
 every stored layout of the vector table (f32, bf16, f16, int8 + scales, PQ
-at dsub = 4 and, for d = 13, dsub = 1). Integers are bit-identical;
+at dsub = 4 and, for d = 13, dsub = 1), and d = 1024, qwen3-0.6b's width,
+where each lane loops over several 16-byte loads of a row. Integers are bit-identical;
 distances agree within 1e-5 of the magnitude of their terms (``‖q‖² +
-‖x‖²`` of the decoded row; both sum d products in other orders).
+‖x‖²`` of the decoded row; both sum d products in other orders). The prune
+runs at model widths too (d = 1024 and 8192, where only some candidate rows
+fit in shared memory). Flash attention agrees with its plain version over
+the variant grid, with q, k and v in the layout the projections leave
+(``[B, S, H, Dh]`` viewed as ``[B, H, S, Dh]``), within 1e-5 in f32 and, in bf16, one ulp plus that 1e-5
+(both round one f32 result once, summed in other orders), and gives 0 on
+a row that sees no key, as the TPU kernel does.
 """
 import numpy as np
 import pytest
@@ -19,6 +26,7 @@ from repro_torch.core import bitset
 from repro_torch.core import storage
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.edge_select import select_edges_cuda
+from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gather_distance import gather_dist_cuda
 from repro_torch.kernels.hop import hop_cuda
 from repro_torch.kernels.prune import prune_cuda
@@ -74,7 +82,7 @@ def _problem(dev, n=333, d=24, m=4, B=7, W=3, seed=0):
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
-@pytest.mark.parametrize("d", [24, 13, 128])
+@pytest.mark.parametrize("d", [24, 13, 128, 1024])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_gather_dist(dev, d, metric, layout):
     p = _problem(dev, d=d)
@@ -115,7 +123,7 @@ def test_select_edges(dev, skip_layers, case):
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
-@pytest.mark.parametrize("d", [24, 13])
+@pytest.mark.parametrize("d", [24, 13, 1024])
 @pytest.mark.parametrize("metric", ["l2", "ip"])
 def test_hop(dev, d, metric, layout):
     p = _problem(dev, d=d)
@@ -171,6 +179,109 @@ def test_prune(dev, alpha, fill, C, d):
         got = prune_cuda(cand, du, table, m=m, alpha=alpha, fill=fill)
         want = ref.prune(cand, du, table, m=m, alpha=alpha, fill=fill)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("C,d,B", [(144, 1024, 512), (128, 8192, 96)])
+def test_prune_at_model_width(dev, C, d, B):
+    """Rows that do not fit in shared memory are read from global memory:
+    kept ids still bit-identical to the plain version."""
+    g = torch.Generator().manual_seed(d)
+    n = 3000
+    table = torch.randn((n, d), generator=g).to(dev)
+    node = torch.randint(0, n, (B,), generator=g).to(dev)
+    cand = torch.randint(-1, n, (B, C), generator=g,
+                         dtype=torch.int32).to(dev)
+    cand[:, 100] = cand[:, 3]           # a duplicate past the staged rows
+    cand = torch.where(cand == node[:, None].int(), -1, cand).contiguous()
+    cvec = table[cand.clamp_min(0).long()]
+    du = torch.where(cand >= 0,
+                     ((cvec - table[node][:, None, :]) ** 2).sum(-1),
+                     torch.inf).contiguous()
+    for alpha in (1.0, 1.2):
+        got = prune_cuda(cand, du, table, m=16, alpha=alpha)
+        want = ref.prune(cand, du, table, m=16, alpha=alpha)
+        assert torch.equal(got, want)
+
+
+# B, Hq, Hkv, Sq, Skv, Dh, keyword arguments
+FLASH = {
+    "causal": (2, 4, 4, 32, 32, 128, {}),
+    "embed_path": (8, 16, 8, 32, 32, 128, {}),
+    "bidirectional": (2, 4, 2, 70, 70, 64, {"causal": False}),
+    "gqa4_ragged": (1, 8, 2, 45, 45, 16, {}),
+    "window": (1, 4, 2, 100, 100, 128, {"window": 24}),
+    "softcap": (1, 4, 2, 64, 64, 256, {"softcap": 30.0}),
+    "q_offset": (2, 4, 2, 19, 83, 128, {"q_offset": 64}),
+    "cross_ragged": (1, 2, 1, 33, 97, 7, {"causal": False}),
+    "everything": (1, 4, 2, 50, 130, 256,
+                   {"window": 40, "softcap": 20.0, "q_offset": 80}),
+}
+
+
+def _qkv(dev, B, Hq, Hkv, Sq, Skv, Dh, dtype, seed):
+    g = torch.Generator().manual_seed(seed)
+    # as the projections leave them: [B, S, H, Dh] viewed as [B, H, S, Dh]
+    q = torch.randn((B, Sq, Hq, Dh), generator=g).to(dev, dtype)
+    k = torch.randn((B, Skv, Hkv, Dh), generator=g).to(dev, dtype)
+    v = torch.randn((B, Skv, Hkv, Dh), generator=g).to(dev, dtype)
+    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+
+
+def _bf16_tol(got, want):
+    """One bf16 ulp at the larger magnitude, plus the f32 tolerance: both
+    round one f32 result once, and those differ by their sum order (near
+    0, where V's terms cancel, by more than an ulp of the output)."""
+    _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8) \
+        + 1e-5
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["f32", "bf16"])
+@pytest.mark.parametrize("case", sorted(FLASH))
+def test_flash_attention(dev, case, dtype):
+    B, Hq, Hkv, Sq, Skv, Dh, kw = FLASH[case]
+    q, k, v = _qkv(dev, B, Hq, Hkv, Sq, Skv, Dh, dtype, seed=Sq + Skv)
+    ops.reset_launch_counts()
+    got = ops.flash_attention(q, k, v, **kw)
+    assert ops.launch_counts()["flash_attention"] == 1
+    want = ref.attention(q, k, v, **kw)
+    assert got.dtype == dtype and got.shape == (B, Hq, Sq, Dh)
+    assert got.is_contiguous()
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5
+    else:
+        assert bool((err <= _bf16_tol(got, want)).all())
+
+
+def test_flash_attention_row_seeing_no_key_is_zero(dev):
+    """window 4, q_offset 40, 16 keys: queries past position 19 see no key;
+    the kernel gives 0 there (the TPU kernel's clamped denominator), the
+    plain version the mean of V (the reference's additive mask)."""
+    q, k, v = _qkv(dev, 1, 2, 2, 8, 16, 64, torch.float32, seed=1)
+    got = flash_attention_cuda(q, k, v, window=4, q_offset=40)
+    assert torch.equal(got, torch.zeros_like(got))
+    plain = ref.attention(q, k, v, window=4, q_offset=40)
+    assert torch.allclose(plain, v.mean(2, keepdim=True).expand_as(plain),
+                          atol=1e-6)
+
+
+def test_flash_attention_rejects_bad_inputs(dev):
+    q, k, v = _qkv(dev, 1, 4, 2, 8, 8, 16, torch.float32, seed=2)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q, k.double(), v)
+    with pytest.raises(TypeError):
+        flash_attention_cuda(q.double(), k.double(), v.double())
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention_cuda(q[:, :3], k, v)
+    with pytest.raises(ValueError, match="dense"):
+        flash_attention_cuda(q, k.transpose(2, 3), v)
+    with pytest.raises(ValueError, match="head dim"):
+        big = torch.zeros((1, 2, 4, 264), device=dev)
+        flash_attention_cuda(big, big, big)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash_attention_cuda(q.cpu(), k, v)
 
 
 def test_cuda_rejects_bad_inputs(dev):

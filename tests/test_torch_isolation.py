@@ -1,9 +1,11 @@
 """The port stands alone: no JAX, nothing of ``repro``, no hidden fallback.
 
-  * No file under ``src/repro_torch/``, and not ``chip_smoke.py``, imports
-    ``jax``, ``repro``, ``msgpack`` or ``ml_dtypes`` (an AST scan), nor
-    ``zstandard`` outside ``compressio.py``, which imports it where it
-    compresses and only when it is installed.
+  * No file under ``src/repro_torch/`` (``core/``, ``kernels/``,
+    ``configs/``, ``models/``, ``sharding/``, ``serve/``, ``launch/``),
+    and neither ``chip_smoke.py`` nor ``prune_time.py``, imports ``jax``, ``repro``, ``msgpack`` or
+    ``ml_dtypes`` (an AST scan), nor ``zstandard`` outside
+    ``compressio.py``, which imports it where it compresses and only when
+    it is installed.
   * ``import repro_torch`` works with ``jax``, ``repro``, ``msgpack``,
     ``zstandard`` and ``ml_dtypes`` blocked (the card's machine lacks the
     last three).
@@ -41,9 +43,17 @@ def _imports(path: pathlib.Path) -> set[str]:
 
 
 def _port_files():
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                          ROOT / "prune_time.py"]
     assert len(files) > 10
     return files
+
+
+def test_scan_covers_every_port_package():
+    dirs = {p.parent.relative_to(PORT).as_posix() for p in _port_files()
+            if PORT in p.parents}
+    assert {"core", "kernels", "configs", "models", "sharding", "serve",
+            "launch"} <= dirs
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -64,6 +74,10 @@ def test_import_with_reference_and_codec_packages_blocked():
         "from repro_torch.kernels import ops, ref, _build\n"
         "from repro_torch.core import build, search, index, msgpack_lite\n"
         "import repro_torch.data, repro_torch.compressio\n"
+        "from repro_torch import configs, serve\n"
+        "from repro_torch.models import api, attention, transformer\n"
+        "from repro_torch.launch import serve as launch_serve\n"
+        "from repro_torch.sharding import partitioning\n"
         "print('ok')\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}

@@ -298,6 +298,34 @@ def test_prune_matches_jax_pallas_kernel():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
+@pytest.mark.parametrize("C,d,staged", [
+    (80, 128, 80), (128, 128, 128),     # the f32 build at d = 128: all rows
+    (144, 1024, 55),                    # qwen3-0.6b's width, C = m + 128
+    (128, 8192, 6), (144, 8192, 6),     # chameleon-34b's width
+    (33, 7, 33),
+])
+def test_prune_smem_plan_at_model_widths(C, d, staged):
+    """The prune kernel's shared-memory plan takes every (C, d) a build at
+    a model's width produces: rows that do not fit stay in global memory,
+    and the plan stays inside the H100's 227 KB per block."""
+    from repro_torch.kernels.prune import SMEM_LIMIT, smem_plan
+
+    got, nbytes = smem_plan(C, d)
+    assert got == staged
+    assert nbytes <= SMEM_LIMIT < 232448
+    row = (d + 3) // 4 * 16
+    assert nbytes == C * 13 + (staged + (staged < C)) * row
+
+
+def test_prune_smem_plan_raises_only_where_nothing_fits():
+    from repro_torch.kernels.prune import smem_plan
+
+    with pytest.raises(ValueError, match="no row staged"):
+        smem_plan(20000, 4)
+    with pytest.raises(ValueError, match="no row staged"):
+        smem_plan(16, 60000)
+
+
 # ---------------------------------------------------------------------------
 # entry points
 # ---------------------------------------------------------------------------
@@ -332,6 +360,8 @@ def test_auto_on_cpu_runs_plain_and_launches_nothing():
              m_out=4)
     cand, du, tbl, _ = _prune_problem()
     tops.prune(_t(cand), _t(du), _t(tbl), m=4)
+    qkv = torch.randn((3, 1, 2, 9, 8)).unbind(0)
+    tops.flash_attention(*qkv)
     assert tops.launch_counts() == {k: 0 for k in tops.KERNELS}
 
 
@@ -350,9 +380,14 @@ def test_cuda_impl_on_cpu_tensors_raises():
     cand, du, tbl, _ = _prune_problem()
     with pytest.raises(RuntimeError, match="CUDA"):
         tops.prune(_t(cand), _t(du), _t(tbl), m=4, impl="cuda")
+    qkv = torch.randn((3, 1, 2, 9, 8)).unbind(0)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tops.flash_attention(*qkv, impl="cuda")
     # the kernel wrappers themselves refuse CPU tensors
     with pytest.raises(ValueError, match="CUDA tensor"):
         tops.KERNELS["gather_dist"](q, table, _t(p["pre"]))
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tops.KERNELS["flash_attention"](*qkv)
     with pytest.raises(ValueError, match="unknown impl"):
         tops.gather_dist(q, table, _t(p["pre"]), impl="pallas")
 
