@@ -5,7 +5,7 @@ Run from the root of a checkout: ``python3 chip_smoke.py`` (no arguments:
 the full-size run, one card). It
 
   1. prints the card's name and power limit (``nvidia-smi``);
-  2. builds the port's four CUDA kernels from ``src/repro_torch/csrc`` with
+  2. builds the port's six CUDA kernels from ``src/repro_torch/csrc`` with
      ``nvcc`` (one process per source, all at once; set-up time);
   3. drives the main path with every launch counter at 0: builds a
      ``RangeGraphIndex`` on the card over ``vector_dataset`` data (n = 1M,
@@ -24,8 +24,9 @@ the full-size run, one card). It
      path's shapes (integers equal; distances within 1e-5 of the magnitude
      of their terms, ``‖q‖² + ‖x‖²``, since both sum d products in another
      order; prune rows may differ only at near-tie keep decisions,
-     ``|alpha*cc - du| <= 1e-5*du``, in under 0.1% of rows) and times
-     kernel, plain version and bound with CUDA events;
+     ``|alpha*cc - du| <= 1e-5*du``, in under 0.1% of rows; the bound
+     counts what the inputs need) and times kernel, plain version and
+     bound with CUDA events;
   6. drives the codec path with every count at 0: re-encodes the 1M index
      with ``astype_storage`` to bf16, f16 (both with "auto" ids), int8 and
      PQ (both with split ids; PQ with its int8 rerank sidecar), printing
@@ -85,7 +86,6 @@ import argparse
 import json
 import math
 import os
-import subprocess
 import sys
 import time
 
@@ -99,8 +99,8 @@ PEAK_F32_FLOPS = 67e12
 
 BUILD_CHUNK = 32768       # nodes per build step on the card
 DIST_RTOL = 1e-5          # distances: relative to ‖q‖² + ‖x‖²
-PRUNE_TIE_RTOL = 1e-5     # prune: a keep decision within this of du
-PRUNE_MAX_DIFF = 1e-3     # prune: share of rows allowed to differ
+# the prune's near-tie rule (a keep decision within 1e-5 of du, in under
+# 0.1% of rows) is repro_torch/bench/common.py::prune_parity
 # The search quality gate: recall@10 >= MIN_RECALL. make_workload draws
 # its queries around other centres than the data's, so their true top-10
 # are tail points of two or three clusters and wide ranges are hard: at
@@ -132,6 +132,11 @@ LM_MIN_COSINE = 0.9999
 LM_MAX_ABS_DIFF = 0.05
 LM_MAX_BATCH = 64         # the engine's batch: the served kernels' B
 PEAK_BF16_FLOPS = 989e12  # dense tensor-core peak, bf16 and f16
+# the roofline phase fails a row above this fraction of its bound
+ROOF_MAX_FRACTION = 1.05
+# roofline row -> the kernel (ops.KERNELS name) it launches
+ROOF_KERNEL = {"edge_select": "select_edges"}
+DIST_TAG = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
 FLASH_F32_TOL = 1e-5      # flash vs plain in f32: sums in other orders
 PEAK_FLOPS = {"torch.float32": PEAK_F32_FLOPS,
               "torch.bfloat16": PEAK_BF16_FLOPS,
@@ -160,28 +165,14 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip()
-
-
 def time_ms(torch, fn, iters=20, warmup=3):
     """Mean ms per call of ``fn(i)`` by CUDA events (``i`` = call index,
-    so a call that updates its inputs in place can take a fresh copy)."""
-    for i in range(warmup):
-        fn(i)
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(iters):
-        fn(warmup + i)
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    so a call that updates its inputs in place can take a fresh copy):
+    ``repro_torch/bench/common.py::time_calls``."""
+    from repro_torch.bench.common import time_calls
+
+    return time_calls(fn, torch.device("cuda", 0), iters=iters,
+                      warmup=warmup) * 1e3
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -231,29 +222,6 @@ def edge_positions_needed(torch, nbrs, us, L, R, logn, out):
     return int(torch.where(us >= 0, needed, 0).sum())
 
 
-def prune_near_tie(torch, ids, du, vecs, m, alpha, fill):
-    """Replay the plain prune of one row in f64 and report whether any
-    keep decision is a near tie, |alpha*cc - du| <= PRUNE_TIE_RTOL*du."""
-    from repro_torch.kernels import ref
-
-    ids, du, vecs = ids[None], du[None], vecs[None]
-    C = ids.shape[1]
-    v64 = vecs.double()
-    xx = (v64 * v64).sum(-1)[0]
-    kept = ref.prune_vecs(ids, du, vecs, m=m, alpha=alpha, fill=fill)[0]
-    for kid in kept.tolist():
-        if kid < 0:
-            break
-        p = int((ids[0] == kid).nonzero()[0, 0])
-        cc = (xx - 2.0 * (v64[0] @ v64[0, p]) + xx[p]).clamp_min(0.0)
-        d = du[0].double()
-        live = torch.isfinite(d) & (ids[0] >= 0)
-        gap = (alpha * cc - d).abs()
-        if bool((live & (gap <= PRUNE_TIE_RTOL * d.abs())).any()):
-            return True
-    return C == 0
-
-
 def cross_cluster_share(torch, index, lab) -> list:
     """Per layer, the share of its edges that join two clusters (``lab``:
     the cluster of each rank, on the index's device)."""
@@ -294,17 +262,6 @@ def recall_by_entry(torch, index, lab_np, L, R, gt, ids, frac) -> dict:
             for i in np.unique(frac)}
 
 
-def edge_jaccard(torch, a, b) -> float:
-    """Mean per-node Jaccard overlap of two [n, m] edge tables (each row's
-    ids distinct)."""
-    live_a, live_b = a >= 0, b >= 0
-    inter = ((a[:, :, None] == b[:, None, :]) & live_a[:, :, None]).any(2)
-    inter = inter.sum(1)
-    union = live_a.sum(1) + live_b.sum(1) - inter
-    jac = torch.where(union > 0, inter / union.clamp_min(1), 1.0)
-    return float(jac.double().mean())
-
-
 def witness_build(torch, n_cut) -> tuple[dict, bool]:
     """The build kernels at a size where recall on wide ranges is already
     low: build the same data twice on the card, once with the kernels and
@@ -312,6 +269,7 @@ def witness_build(torch, n_cut) -> tuple[dict, bool]:
     torch, then compare the tables layer by layer and the recall of one
     search over each by range fraction."""
     from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig, recall
+    from repro_torch.bench.buildpath import table_overlap
     from repro_torch.data import make_workload, vector_dataset
     from repro_torch.kernels import ops
 
@@ -329,9 +287,7 @@ def witness_build(torch, n_cut) -> tuple[dict, bool]:
     torch.cuda.synchronize()
     p_s = time.perf_counter() - t0
     plain_launches = sum(ops.launch_counts().values()) - sum(before.values())
-    layers = kidx.neighbors.shape[1] - 1
-    jac = [edge_jaccard(torch, kidx.neighbors[:, lay], pidx.neighbors[:, lay])
-           for lay in range(layers)]
+    jac = table_overlap(kidx.neighbors, pidx.neighbors)
     same_rows = float((kidx.neighbors == pidx.neighbors).all(2).all(1)
                       .double().mean())
     wl = make_workload(kidx, "mixed", n_queries=1000, seed=1)
@@ -372,7 +328,12 @@ CODEC_TPU = {
                     "pq": "gather_distance.py:101"},
     "hop": {"bf16": "hop.py:233", "f16": "hop.py:233", "int8": "hop.py:220",
             "pq": "hop.py:223"},
+    "prune": "prune.py:95",   # the codec body, :95-105 (set-up :207-219)
 }
+# what pairwise_dist's library_ms times (the port never calls it)
+PAIRWISE_LIBRARY = ("cuBLAS SGEMM of q @ x.T alone (torch.mm, TF32 off): the "
+                    "product at the function's heart, without the norms; a "
+                    "lower bound on any library version")
 
 
 def stored_row_bytes(table) -> tuple[int, int]:
@@ -631,13 +592,16 @@ def codec_files(torch, codec_idx, wl, lo_val, hi_val, names) -> bool:
     return ok
 
 
-def kernel_entry(name, rec, cu, tpu, launches) -> dict:
-    """Print one kernel's check and return its record of the kernels line
-    (no single PyTorch call computes any of these kernels' functions, so
-    library_ms is null)."""
+def kernel_entry(name, rec, cu, tpu, launches, library_ms=None) -> dict:
+    """Print one kernel's check and return its record of the kernels line.
+    ``library_ms`` is the time of one PyTorch call computing the same
+    function, where there is one (for pairwise_dist, cuBLAS SGEMM of the
+    product alone: PAIRWISE_LIBRARY); else null."""
     print(f"kernel {name} [{rec['shape']}]: {rec['ms']:.4f} ms, plain "
           f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
-          f"({rec['bound_by']}), max_abs_err {rec['max_abs_err']:.3g}"
+          f"({rec['bound_by']})"
+          + ("" if library_ms is None else f", library {library_ms:.4f} ms")
+          + f", max_abs_err {rec['max_abs_err']:.3g}"
           + (f", rows differing {rec['rows_differ']} (near ties "
              f"{rec['near_ties']})" if "rows_differ" in rec else "")
           + ("" if rec["ok"] else "  DISAGREES"), flush=True)
@@ -647,7 +611,7 @@ def kernel_entry(name, rec, cu, tpu, launches) -> dict:
             "launches": launches, "max_abs_err": rec["max_abs_err"],
             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": None}
+            "library_ms": library_ms}
 
 
 def profile_search(torch, search, tag="search fused") -> None:
@@ -825,6 +789,38 @@ def prune_work(torch, cand, du, cvec, m, alpha=1.0,
     return union, live_rows, dots
 
 
+def prune_record(torch, table, cand, du, m, shape) -> dict:
+    """The prune kernel against its plain version on one table in any
+    stored layout: kept ids equal but for near ties (``prune_parity``), ms
+    and plain ms by CUDA events, and the bound of what these inputs need
+    (``prune_work``) at the stored row width: the distinct candidate rows
+    read once (int8 with its scale, PQ codes with the codebook once)."""
+    from repro_torch.bench.common import prune_parity
+    from repro_torch.core import storage
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.prune import prune_cuda, smem_plan
+
+    B, C = cand.shape
+    d = storage.table_dim(table)
+    got = prune_cuda(cand, du, table, m=m)
+    want = ref.prune(cand, du, table, m=m)
+    cvec = storage.decode_rows(table, cand.clamp_min(0).long())
+    differ, ties, good = prune_parity(got, want, cand, du, cvec, m)
+    kms = time_ms(torch, lambda i: prune_cuda(cand, du, table, m=m))
+    pms = time_ms(torch, lambda i: ref.prune(cand, du, table, m=m), iters=3)
+    union, live, dots = prune_work(torch, cand, du, cvec, m)
+    del cvec
+    row, once = stored_row_bytes(table)
+    bms, by = bound_ms(B * C * 8 + union * row + once + B * m * 4,
+                       (dots + live) * 2.0 * d)
+    staged, smem = smem_plan(C, d)
+    return dict(ok=good, max_abs_err=float((got - want).abs().max()),
+                ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                rows_differ=differ, near_ties=ties, staged_rows=staged,
+                smem_bytes=smem, rows_distinct=union, rows_live=live,
+                dots=dots, shape=shape, kept=got)
+
+
 def prune_check_wide(torch, index, efc) -> dict:
     """The prune kernel against its plain version at the lm index's width
     (d = 1024) on one build chunk's own inputs: the nodes of one
@@ -832,13 +828,13 @@ def prune_check_wide(torch, index, efc) -> dict:
     their candidates formed as ``core/build.py::_build_search_level``
     forms them (own child's edges plus ``search_fixed_layer(k=efc)`` over
     the sibling half: C = m + efc = 144 distinct ids), the child level
-    read from the built table, which the later levels never change. Rows
-    may differ only at near ties. The bound counts what these inputs
-    need (``prune_work``)."""
-    from repro_torch import SearchConfig
+    read from the built table, which the later levels never change; on the
+    f32 table and on its int8 re-encoding (rows that do not fit in shared
+    memory decoded in the sweeps). Rows may differ only at near ties.
+    Returns {"f32": record, "int8": record}."""
+    from repro_torch import SearchConfig, StorageConfig
+    from repro_torch.core import storage
     from repro_torch.core.search import search_fixed_layer
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.prune import prune_cuda, smem_plan
 
     table = index.vectors
     nbrs = index.neighbors
@@ -866,32 +862,27 @@ def prune_check_wide(torch, index, efc) -> dict:
     cvec = table[cand.clamp_min(0).long()]
     du = torch.where(valid, ((cvec - table[s:e][:, None, :]) ** 2).sum(-1),
                      torch.inf).contiguous()
-    got = prune_cuda(cand, du, table, m=m)
-    want = ref.prune(cand, du, table, m=m)
-    diff = (got != want).any(dim=1).nonzero()[:, 0].tolist()
-    ties = sum(prune_near_tie(torch, cand[r], du[r], cvec[r], m, 1.0, True)
-               for r in diff)
-    good = ties == len(diff) and len(diff) <= PRUNE_MAX_DIFF * Bp
-    kms = time_ms(torch, lambda i: prune_cuda(cand, du, table, m=m))
-    pms = time_ms(torch, lambda i: ref.prune(cand, du, table, m=m), iters=3)
-    union, live, dots = prune_work(torch, cand, du, cvec, m)
     del cvec
-    bms, by = bound_ms(Bp * C * 8 + union * d * 4 + Bp * m * 4,
-                       (dots + live) * 2.0 * d)
-    staged, smem = smem_plan(C, d)
-    rec = dict(ok=good, max_abs_err=float((got - want).abs().max()),
-               ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
-               rows_differ=len(diff), near_ties=ties, staged_rows=staged,
-               smem_bytes=smem, layer=lay, segment=size,
-               rows_distinct=union, rows_live=live, dots=dots,
-               shape=f"B={Bp} C={C} d={d} m={m}")
-    print(f"kernel prune [{rec['shape']}, one build chunk at layer {lay} "
-          f"(segments of {size}), {staged} of {C} rows in {smem} B of "
-          f"shared memory; {live} live candidates, {union} distinct table "
-          f"rows, {dots} dots]: {kms:.4f} ms, plain {pms:.4f} ms, bound "
-          f"{bms:.4f} ms ({by}), rows differing {len(diff)} (near ties "
-          f"{ties})" + ("" if good else "  DISAGREES"), flush=True)
-    return rec
+    out = {}
+    for name, tbl in (("f32", table), ("int8", storage.encode_vectors(
+            table, StorageConfig.int8()))):
+        rec = prune_record(torch, tbl, cand, du, m,
+                           f"B={Bp} C={C} d={d} m={m}"
+                           + ("" if name == "f32" else f" {name}"))
+        rec.pop("kept")
+        rec.update(layer=lay, segment=size)
+        print(f"kernel prune [{rec['shape']}, one build chunk at layer "
+              f"{lay} (segments of {size}), {rec['staged_rows']} of {C} "
+              f"rows in {rec['smem_bytes']} B of shared memory; "
+              f"{rec['rows_live']} live candidates, {rec['rows_distinct']} "
+              f"distinct table rows, {rec['dots']} dots]: "
+              f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
+              f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}), rows "
+              f"differing {rec['rows_differ']} (near ties "
+              f"{rec['near_ties']})" + ("" if rec["ok"] else "  DISAGREES"),
+              flush=True)
+        out[name] = rec
+    return out
 
 
 def lm_serve(torch, n_items) -> tuple[dict, bool]:
@@ -1059,6 +1050,167 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
     return out, ok
 
 
+def roofline_phase(torch) -> tuple[list, dict, dict, bool]:
+    """``bench/roofline.py`` at its default shape (B = 64, n = 100,000,
+    d = 128, M = 16) on the card, every launch counter at 0 before its
+    kernel rows and read after: the measured peaks beside the data sheet's,
+    each row's time, bound and fraction. Fails a row that errored, is not
+    finite, or reaches more than ROOF_MAX_FRACTION of its bound (a count
+    or a peak would be wrong). Returns (rows, counts, problem, ok)."""
+    from repro_torch.bench import roofline
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    peaks = roofline.measure_peaks(dev, iters=10)
+    print(f"roofline peaks (measured, f32 matmul TF32 off, 128 MiB "
+          f"stream): {peaks['peak_gflops'] / 1e3:.2f} TFLOP/s (by k: "
+          + ", ".join(f"{k}: {v / 1e3:.2f}" for k, v in
+                      peaks["matmul_gflops_by_k"].items())
+          + f"), {peaks['peak_gbps'] / 1e3:.3f} TB/s; data sheet "
+          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32, "
+          f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
+    p = roofline.make_problem(64, 100_000, 128, 16, dev)
+    ops.reset_launch_counts()
+    rows = roofline.run_kernels(p, peaks, iters=20)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    failures = roofline.failures_of(rows, peaks)
+    for r in rows:
+        if "error" in r:
+            continue
+        line = (f"roofline[{r['kernel']}]: {r['time_us']:.2f} us, bound "
+                f"{r['bound_us']:.2f} us ({r['bottleneck']}), fraction "
+                f"{r['achieved_fraction']:.4f}, {r['achieved_gbps']:.1f} "
+                f"GB/s, {r['achieved_gflops']:.1f} GFLOP/s; flops "
+                f"{r['flops']}, bytes {r['bytes']}")
+        if r["achieved_fraction"] > ROOF_MAX_FRACTION:
+            failures.append(f"kernel {r['kernel']} at "
+                            f"{r['achieved_fraction']:.3f} of its bound")
+        print(line, flush=True)
+    print(f"roofline path launches: {json.dumps(counts)}", flush=True)
+    for msg in failures:
+        print(f"roofline: {msg}", flush=True)
+    never = [r["kernel"] for r in rows
+             if counts.get(ROOF_KERNEL.get(r["kernel"], r["kernel"])) == 0]
+    if never:
+        fail(f"kernels never launched on the roofline path: {never}")
+    return rows, counts, p, not failures
+
+
+def pairwise_checks(torch, q_roof, x_roof, q_1m, x_1m) -> dict:
+    """Kernel 5 against its plain version at the roofline's shape and at
+    the 1M path's ground-truth shape (1,000 queries against the 1M index's
+    f32 vectors: a 4 GB output), for f32, bf16 and f16 inputs, l2 and ip.
+    f32 within DIST_RTOL of ``‖q‖² + ‖x‖²``, the half types within
+    ``bf16_tol``; ms, plain ms, the bound (f32 operations at 67 TFLOP/s,
+    or bytes) and, for f32 l2, cuBLAS SGEMM of the product alone as
+    library_ms."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.distance import pairwise_dist_cuda
+
+    out = {}
+    for where, (q0, x0) in (("roofline", (q_roof, x_roof)),
+                            ("1M", (q_1m, x_1m))):
+        big = x0.shape[0] >= 1_000_000
+        for dt in ("float32", "bfloat16", "float16"):
+            dtype = getattr(torch, dt)
+            q, x = q0.to(dtype).contiguous(), x0.to(dtype).contiguous()
+            qf, xf = q.float(), x.float()
+            qq = (qf * qf).sum(1, keepdim=True)
+            xx = (xf * xf).sum(1)[None, :]
+            del qf, xf
+            for metric in ("l2", "ip"):
+                name = f"{where} {DIST_TAG[dt]} {metric}"
+                got = pairwise_dist_cuda(q, x, metric=metric)
+                want = ref.pairwise_dist(q, x, metric=metric)
+                err = (got - want).abs()
+                rel_ok = bool((err <= DIST_RTOL * (qq + xx)).all())
+                if dtype == torch.float32:
+                    good = rel_ok
+                else:
+                    good = bool((err <= bf16_tol(torch, got, want)).all())
+                max_err = float(err.max())
+                del got, want, err
+                rec = dict(ok=good, max_abs_err=max_err,
+                           within_f32_rule=rel_ok, library_ms=None)
+                timed = metric == "l2" or not big
+                if timed:
+                    Bq, D = q.shape
+                    N = x.shape[0]
+                    it = 5 if big else 20
+                    rec["ms"] = time_ms(torch, lambda i: pairwise_dist_cuda(
+                        q, x, metric=metric), iters=it, warmup=2)
+                    rec["plain_ms"] = time_ms(
+                        torch, lambda i: ref.pairwise_dist(q, x,
+                                                           metric=metric),
+                        iters=3 if big else 10, warmup=1)
+                    if dtype == torch.float32:
+                        xt = x.T
+                        rec["library_ms"] = time_ms(
+                            torch, lambda i: torch.mm(q, xt), iters=it,
+                            warmup=2)
+                    flops = 2.0 * Bq * N * D + (3.0 * Bq * N
+                                                if metric == "l2" else Bq * N)
+                    nbytes = (Bq + N) * D * q.element_size() + Bq * N * 4
+                    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+                rec["shape"] = (f"Bq={q.shape[0]} N={x.shape[0]} "
+                                f"d={q.shape[1]} {dt} {metric}")
+                out[name] = rec
+                print(f"kernel pairwise_dist[{name}] [{rec['shape']}]: "
+                      + (f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
+                         f"ms, bound {rec['bound_ms']:.4f} ms "
+                         f"({rec['bound_by']})"
+                         + ("" if rec["library_ms"] is None else
+                            f", SGEMM alone {rec['library_ms']:.4f} ms")
+                         + ", " if timed else "")
+                      + f"max_abs_err {max_err:.3g}, within 1e-5 of its "
+                      f"terms {rel_ok}" + ("" if good else "  DISAGREES"),
+                      flush=True)
+            del q, x, qq, xx
+            torch.cuda.empty_cache()
+    return out
+
+
+def buildpath_phase(torch) -> tuple[dict, dict, bool]:
+    """``bench/buildpath.py`` at its defaults on the card, every launch
+    counter at 0 before and read after: ``prune_step`` over the level
+    shapes (C = 80, 128, 48) x chunks 512 / 2048 / 4096 at n = 32,768,
+    d = 64, m = 16 with legacy, torch and cuda, and whole builds at n =
+    8,192 with each. Gates: legacy and torch identical; cuda within the
+    near-tie rule step by step, and the same table or per-layer edge
+    overlap >= 0.95 for the builds. Returns (record, counts, ok)."""
+    from repro_torch.bench import buildpath
+    from repro_torch.kernels import ops
+
+    dev = torch.device("cuda", 0)
+    backends = buildpath.backends_for(dev)
+    ops.reset_launch_counts()
+    rows, step_parity = buildpath.bench_prune_step(
+        32_768, 64, 16, 64, 128, (512, 2048, 4096), 8, dev, backends)
+    e2e, e2e_parity, agree = buildpath.bench_build_levels(
+        8192, 64, 16, 64, 128, dev, backends)
+    torch.cuda.synchronize()
+    counts = ops.launch_counts()
+    for r in rows:
+        print(f"buildpath prune_step[{r['kind']} C={r['C']} "
+              f"chunk={r['chunk']}]: " + ", ".join(
+                  f"{b} {r[f'{b}_us']:.1f} us" for b in backends)
+              + f"; legacy == torch {r['legacy_torch_identical']}, cuda "
+              f"rows differing {r['cuda_rows_differ']} (near ties "
+              f"{r['cuda_near_ties']})", flush=True)
+    print("buildpath build_levels[n=8192]: " + ", ".join(
+        f"{b} {e2e[b]['total_s']:.3f} s ({e2e[b]['nodes_per_s']:.0f} "
+        f"nodes/s)" for b in backends) + f"; {json.dumps(agree)}",
+          flush=True)
+    if counts["prune"] == 0:
+        fail("the prune kernel never launched on the buildpath path")
+    ok = step_parity and e2e_parity
+    if not ok:
+        print("buildpath: the prune backends diverged", flush=True)
+    return {"prune_step": rows, "build_levels": e2e,
+            "agreement": agree}, counts, ok
+
+
 def run(args):
     import torch
 
@@ -1073,16 +1225,19 @@ def run(args):
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig, recall
+    from repro_torch.bench.common import card_line
     from repro_torch.core import storage
     from repro_torch.data import make_workload, vector_dataset
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.edge_select import select_edges_cuda
-    from repro_torch.kernels.prune import prune_cuda
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     torch.empty(1, device=dev)  # create the context before any query
-    print(card_line(), flush=True)  # the card's name and power limit
+    line = card_line()
+    if line is None:
+        fail("nvidia-smi gave no card name and power limit")
+    print(line, flush=True)  # the card's name and power limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"python {sys.version.split()[0]}", flush=True)
 
@@ -1262,6 +1417,7 @@ def run(args):
                                  hop_args, hop_need))
 
     # prune at the build's two candidate widths
+    prune_inputs = {}
     for C in (80, 128):
         Bp = 16384
         node = (torch.rand((Bp,), generator=gen, device=dev) * n).long()
@@ -1280,27 +1436,14 @@ def run(args):
             cand = torch.where((cand >= 0) & (cand < n)
                                & (cand != node[:, None]), cand, -1)
         cand = cand.to(torch.int32).contiguous()
-        cvec = table[cand.clamp_min(0).long()]
-        du = torch.where(cand >= 0, ((cvec - table[node][:, None, :]) ** 2)
+        du = torch.where(cand >= 0, ((table[cand.clamp_min(0).long()]
+                                      - table[node][:, None, :]) ** 2)
                          .sum(-1), torch.inf).contiguous()
-        got = prune_cuda(cand, du, table, m=16)
-        want = ref.prune(cand, du, table, m=16)
-        diff = (got != want).any(dim=1).nonzero()[:, 0].tolist()
-        ties = sum(prune_near_tie(torch, cand[r], du[r], cvec[r], 16, 1.0,
-                                  True) for r in diff)
-        good = ties == len(diff) and len(diff) <= PRUNE_MAX_DIFF * Bp
-        kms = time_ms(torch, lambda i: prune_cuda(cand, du, table, m=16))
-        pms = time_ms(torch, lambda i: ref.prune(cand, du, table, m=16),
-                      iters=3)
-        nv = int((cand >= 0).sum())
-        bms, by = bound_ms(Bp * C * 8 + nv * d * 4 + Bp * 16 * 4,
-                           Bp * 16 * C * 2 * d)
-        rec = dict(ok=good, max_abs_err=float((got - want).abs().max()),
-                   ms=kms,
-                   plain_ms=pms, bound_ms=bms, bound_by=by,
-                   rows_differ=len(diff), near_ties=ties,
-                   shape=f"B={Bp} C={C} d={d} m=16")
+        rec = prune_record(torch, table, cand, du, 16,
+                           f"B={Bp} C={C} d={d} m=16")
+        rec.pop("kept")
         records["prune" if C == 80 else "prune_C128"] = rec
+        prune_inputs[C] = (cand, du)
 
     sources = {
         "gather_dist": ("gather_distance.cu", "gather_distance.py:48"),
@@ -1367,6 +1510,8 @@ def run(args):
                        ("int8", "pq")):
         print("files: a saved and loaded index differs", flush=True)
         ok = False
+    # the stored vector tables stay for the prune's codec bodies
+    codec_tables = {name: cidx.vectors for name, cidx in codec_idx.items()}
     del codec_idx
 
     # -- the build kernels against a plain build, at a cut size -------------
@@ -1405,7 +1550,7 @@ def run(args):
     for rec in flash.values():
         ok &= rec["ok"]
     wide = prune_check_wide(torch, lm_index, 2 * LM_EF)
-    ok &= wide["ok"]
+    ok &= wide["f32"]["ok"]
     # gather_dist and hop at the served batch's shapes on the d = 1024
     # index: B = LM_MAX_BATCH queries, the engine's W frontier rows of m
     fr = frontier(torch, lm_index, lm_q[:LM_MAX_BATCH], lm_L[:LM_MAX_BATCH],
@@ -1438,14 +1583,82 @@ def run(args):
         "at_S4096": {k: flash["long"][k] for k in
                      ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "max_abs_err")}})
+    wide_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
+                 "rows_differ", "near_ties", "staged_rows", "smem_bytes",
+                 "layer", "rows_distinct", "rows_live", "dots")
     for entry in kernels:
         if entry["name"] == "prune":
-            entry["at_d1024"] = {k: wide[k] for k in
-                                 ("ms", "plain_ms", "bound_ms", "bound_by",
-                                  "max_abs_err", "rows_differ", "near_ties",
-                                  "staged_rows", "smem_bytes", "layer",
-                                  "rows_distinct", "rows_live", "dots")}
+            entry["at_d1024"] = {k: wide["f32"][k] for k in wide_keys}
             entry["lm_path_launches"] = lm["launches"]["prune"]
+
+    # -- the roofline path: bench/roofline.py at its default shape ----------
+    # driven with every count at 0; then kernel 5 against its plain version
+    t_phase = time.perf_counter()
+    roof, roof_counts, problem, good = roofline_phase(torch)
+    ok &= good
+    dist = pairwise_checks(torch, problem["q"], problem["table"],
+                           torch.as_tensor(wl.queries, device=dev),
+                           index.vectors)
+    ok &= all(r["ok"] for r in dist.values())
+    del problem
+    main_dist = dist["roofline f32 l2"]
+    kernels.append(kernel_entry(
+        "pairwise_dist", main_dist, "distance.cu", "distance.py:26",
+        roof_counts["pairwise_dist"], main_dist["library_ms"]))
+    kernels[-1]["library"] = PAIRWISE_LIBRARY
+    kernels[-1]["at_1M"] = {k: dist["1M f32 l2"][k] for k in
+                            ("ms", "plain_ms", "bound_ms", "bound_by",
+                             "library_ms", "max_abs_err", "shape")}
+    kernels[-1]["max_abs_err_by_case"] = {
+        name: r["max_abs_err"] for name, r in dist.items()}
+    print(f"phase[roofline + pairwise_dist]: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+
+    # -- the prune's codec bodies: ops.prune on the 1M index's tables -------
+    t_phase = time.perf_counter()
+    cand, du = prune_inputs[80]
+    ops.reset_launch_counts()
+    kept = {name: ops.prune(cand, du, tbl, m=16)
+            for name, tbl in codec_tables.items()}
+    torch.cuda.synchronize()
+    prune_layouts = ops.layout_counts()
+    print(f"codec prune path launches: {json.dumps(prune_layouts)}",
+          flush=True)
+    never = [f"prune[{name}]" for name in codec_tables
+             if prune_layouts[f"prune[{name}]"] == 0]
+    if never:
+        fail(f"codec layouts never launched on the codec prune path: {never}")
+    for name, tbl in codec_tables.items():
+        rec = prune_record(torch, tbl, cand, du, 16,
+                           f"B={cand.shape[0]} C={cand.shape[1]} d={d} m=16 "
+                           f"{name}")
+        same = torch.equal(rec.pop("kept"), kept[name])
+        rec["ok"] &= same
+        ok &= rec["ok"]
+        key = f"prune[{name}]"
+        kernels.append(kernel_entry(key, rec, "prune.cu", CODEC_TPU["prune"],
+                                    prune_layouts[key]))
+        kernels[-1].update(rows_differ=rec["rows_differ"],
+                           near_ties=rec["near_ties"])
+        if not same:
+            print(f"kernel {key}: the path's kept ids differ from a second "
+                  "launch on the same inputs", flush=True)
+    ok &= wide["int8"]["ok"]
+    entry = next(e for e in kernels if e["name"] == "prune[int8]")
+    entry["at_d1024"] = {k: wide["int8"][k] for k in wide_keys}
+    del codec_tables
+    print(f"phase[prune codec bodies]: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # -- the build-path benchmark: bench/buildpath.py at its defaults -------
+    t_phase = time.perf_counter()
+    bp, bp_counts, good = buildpath_phase(torch)
+    ok &= good
+    print(f"phase[buildpath]: {time.perf_counter() - t_phase:.1f} s; "
+          f"launches {json.dumps(bp_counts)}", flush=True)
+    for entry in kernels:
+        if entry["name"] == "prune":
+            entry["buildpath_launches"] = bp_counts["prune"]
     if not ok:
         fail("a check failed (see above)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,15 +1,17 @@
 #!/usr/bin/env python3
-"""Time the prune kernel of one source tree at the d = 128 build's shapes.
+"""Time the prune kernel of one source tree at the builds' shapes.
 
 ``python3 prune_time.py <src dir>`` imports
 ``repro_torch`` from ``<src dir>`` (a checkout's ``src``), builds its
 kernels, and prunes seeded inputs on the card: n = 1,000,000 random f32
 rows of d = 128, B = 16,384 nodes, C = 80 candidates drawn from a 4,096-row
-segment (a search level) and C = 128 (a brute level's whole segment),
-m = 16. Prints one JSON line: ms per launch by CUDA events over 20 launches
-after 3 warm-ups, and whether the kept ids equal the plain version's. To
-compare two trees, run it once per tree in turns (a, b, b, a) in one call
-on one card.
+segment (a search level) and C = 128 (a brute level's whole segment); and
+n = 131,072 rows of d = 1,024 (qwen3-0.6b's width), B = 4,096 nodes, C =
+144 candidates from a 4,096-row segment, where only some rows fit in
+shared memory; m = 16. Prints one JSON line: ms per launch by CUDA events
+over 20 launches after 3 warm-ups, and whether the kept ids equal the
+plain version's. To compare two trees, run it once per tree in turns (a,
+b, b, a) in one call on one card.
 """
 import json
 import sys
@@ -29,10 +31,15 @@ def main():
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
-    n, d, B, m = 1_000_000, 128, 16384, 16
-    table = torch.randn((n, d), generator=g, device=dev)
+    m = 16
     out = {"src": sys.argv[1]}
-    for C in (80, 128):
+    tables = {}
+    for name, n, d, B, C in (("C80", 1_000_000, 128, 16384, 80),
+                             ("C128", 1_000_000, 128, 16384, 128),
+                             ("d1024_C144", 131072, 1024, 4096, 144)):
+        if d not in tables:
+            tables[d] = torch.randn((n, d), generator=g, device=dev)
+        table = tables[d]
         node = (torch.rand((B,), generator=g, device=dev) * n).long()
         if C == 128:
             cand = ((node >> 7) << 7)[:, None] + torch.arange(
@@ -57,8 +64,8 @@ def main():
             prune_cuda(cand, du, table, m=m)
         b.record()
         torch.cuda.synchronize()
-        out[f"C{C}_ms"] = a.elapsed_time(b) / 20
-        out[f"C{C}_same_as_plain"] = bool(same)
+        out[f"{name}_ms"] = a.elapsed_time(b) / 20
+        out[f"{name}_same_as_plain"] = bool(same)
     print(json.dumps(out), flush=True)
 
 

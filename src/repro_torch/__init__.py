@@ -9,7 +9,8 @@ that the CPU runs and the card is checked against.
 
 Tables may be stored in any of ``repro``'s codecs (``core/storage.py``:
 bf16/f16, int8, PQ with an int8 rerank sidecar, split neighbor ids); the
-search kernels decode the stored rows in registers.
+search kernels and the prune decode the stored rows in registers.
+``repro_torch.bench`` holds the roofline and build-path benchmarks.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Importing this package imports torch and numpy only: no JAX, nothing of

@@ -48,7 +48,7 @@ class BuildConfig:
     add_reverse: bool = True       # bidirectional pass per level
     fill_pruned: bool = True       # keepPrunedConnections
     chunk: int | None = None       # nodes per batched prune call; None = auto
-    prune_impl: str = "auto"       # "auto" | "cuda" | "torch"
+    prune_impl: str = "auto"       # "auto" | "cuda" | "torch" | "legacy"
 
 
 # The JAX package sizes chunks against a host cache budget (16 MiB by

@@ -29,6 +29,18 @@
 // always read from shared memory. Every dot runs the same lane-strided
 // fmaf loop and warp reduction wherever its row lives, so `staged` never
 // changes a result (kernels/prune.py::smem_plan picks it).
+//
+// Stored layouts (the codec body, TPU prune.py:95-105, set-up :207-219):
+// the table may be f32, bf16, f16, int8 codes with a per-row scale, or PQ
+// codes with their codebook (csrc/common.cuh::Rows). A row is decoded once,
+// as it is gathered: bf16/f16 widen exactly, int8 is code * scale rounded
+// once (__fmul_rn, as storage.decode_rows computes it), PQ reads each
+// subspace's centroid from the codebook in global memory (L1/L2 keep it;
+// never copied per block). A staged row goes into shared memory as f32, so
+// smem_plan is the same for every layout; an unstaged row is decoded in
+// the sweep with the same loads and the same fmaf order. The bound then
+// counts the stored row width: bf16/f16 rows are half, int8 rows a quarter
+// (plus 4 bytes of scale), PQ rows one byte per subspace.
 #include "common.cuh"
 
 namespace {
@@ -60,6 +72,75 @@ __device__ __forceinline__ Key warp_min(Key k) {
   return k;
 }
 
+// Element loads of one stored row, decoded to f32 (s: the row's int8 scale,
+// 1 otherwise). load4 reads elements 4k..4k+3 with one vector load; it is
+// called only where t.vec says the rows are aligned for it.
+template <int LAYOUT>
+__device__ __forceinline__ float row_scale(const rt::Rows& t, int row) {
+  if constexpr (LAYOUT == rt::kInt8) return __ldg(t.aux + row);
+  return 1.f;
+}
+
+template <int LAYOUT>
+__device__ __forceinline__ float load1(const rt::Rows& t, int row, int k,
+                                       float s) {
+  const size_t base = static_cast<size_t>(row) * t.d;
+  if constexpr (LAYOUT == rt::kF32) {
+    return __ldg(static_cast<const float*>(t.data) + base + k);
+  } else if constexpr (LAYOUT == rt::kBF16 || LAYOUT == rt::kF16) {
+    return rt::half_bits(
+        __ldg(static_cast<const unsigned short*>(t.data) + base + k),
+        LAYOUT == rt::kBF16);
+  } else if constexpr (LAYOUT == rt::kInt8) {
+    return __fmul_rn(
+        static_cast<float>(__ldg(static_cast<const signed char*>(t.data) +
+                                 base + k)),
+        s);
+  } else {  // kPQ: subspace j's centroid, element k - j*dsub
+    const int dsub = t.d / t.sub;
+    const int j = k / dsub;
+    const int c = __ldg(static_cast<const unsigned char*>(t.data) +
+                        static_cast<size_t>(row) * t.sub + j);
+    return __ldg(t.aux + (static_cast<size_t>(j) * 256 + c) * dsub +
+                 (k - j * dsub));
+  }
+}
+
+template <int LAYOUT>
+__device__ __forceinline__ float4 load4(const rt::Rows& t, int row, int k4,
+                                        float s) {
+  const size_t base = static_cast<size_t>(row) * t.d;
+  if constexpr (LAYOUT == rt::kF32) {
+    return __ldg(reinterpret_cast<const float4*>(
+                     static_cast<const float*>(t.data) + base) + k4);
+  } else if constexpr (LAYOUT == rt::kBF16 || LAYOUT == rt::kF16) {
+    constexpr bool bf = LAYOUT == rt::kBF16;
+    const uint2 raw = __ldg(reinterpret_cast<const uint2*>(
+                                static_cast<const unsigned short*>(t.data) +
+                                base) + k4);
+    return make_float4(rt::half_bits(raw.x & 0xffffu, bf),
+                       rt::half_bits(raw.x >> 16, bf),
+                       rt::half_bits(raw.y & 0xffffu, bf),
+                       rt::half_bits(raw.y >> 16, bf));
+  } else if constexpr (LAYOUT == rt::kInt8) {
+    const char4 c = __ldg(reinterpret_cast<const char4*>(
+                              static_cast<const signed char*>(t.data) +
+                              base) + k4);
+    return make_float4(__fmul_rn(static_cast<float>(c.x), s),
+                       __fmul_rn(static_cast<float>(c.y), s),
+                       __fmul_rn(static_cast<float>(c.z), s),
+                       __fmul_rn(static_cast<float>(c.w), s));
+  } else {  // kPQ: four elements of one subspace (dsub % 4 == 0)
+    const int dsub = t.d / t.sub;
+    const int k = 4 * k4;
+    const int j = k / dsub;
+    const int c = __ldg(static_cast<const unsigned char*>(t.data) +
+                        static_cast<size_t>(row) * t.sub + j);
+    return __ldg(reinterpret_cast<const float4*>(
+        t.aux + (static_cast<size_t>(j) * 256 + c) * dsub + (k - j * dsub)));
+  }
+}
+
 // x.y of one candidate row with the keep's row xp (shared memory), lanes
 // strided over d, reduced over the warp: the row in shared memory ...
 __device__ __forceinline__ float row_dot(const float* xj, const float* xp,
@@ -81,36 +162,40 @@ __device__ __forceinline__ float row_dot(const float* xj, const float* xp,
   return rt::warp_sum(a);
 }
 
-// ... or in global memory, read through the read-only cache: the same sum
-// in the same order.
-__device__ __forceinline__ float row_dot_ldg(const float* __restrict__ xj,
-                                             const float* xp, int d, int vec4,
+// ... or stored in global memory, decoded on the fly: the same sum in the
+// same order.
+template <int LAYOUT>
+__device__ __forceinline__ float row_dot_ldg(const rt::Rows& t, int row,
+                                             const float* xp, int vec4,
                                              int lane) {
+  const int d = t.d;
+  const float s = row_scale<LAYOUT>(t, row);
   float a = 0.f;
   if (vec4) {
-    const float4* a4 = reinterpret_cast<const float4*>(xj);
     const float4* b4 = reinterpret_cast<const float4*>(xp);
 #pragma unroll 4
     for (int k = lane; k < (d >> 2); k += 32) {
-      const float4 u = __ldg(a4 + k), v = b4[k];
+      const float4 u = load4<LAYOUT>(t, row, k, s), v = b4[k];
       a = fmaf(u.x, v.x, a);
       a = fmaf(u.y, v.y, a);
       a = fmaf(u.z, v.z, a);
       a = fmaf(u.w, v.w, a);
     }
   } else {
-    for (int k = lane; k < d; k += 32) a = fmaf(__ldg(xj + k), xp[k], a);
+    for (int k = lane; k < d; k += 32)
+      a = fmaf(load1<LAYOUT>(t, row, k, s), xp[k], a);
   }
   return rt::warp_sum(a);
 }
 
+template <int LAYOUT>
 __global__ void __launch_bounds__(kThreads)
 prune_kernel(const int* __restrict__ cand_ids,
-             const float* __restrict__ cand_dists,
-             const float* __restrict__ table, int* __restrict__ out, int C,
-             int d, int n, int m, float alpha, int fill, int vec4,
-             int staged) {
+             const float* __restrict__ cand_dists, const rt::Rows t,
+             int* __restrict__ out, int C, int n, int m, float alpha,
+             int fill, int vec4, int staged) {
   extern __shared__ float4 smem4[];
+  const int d = t.d;
   const int dp = (d + 3) & ~3;
   float* xs = reinterpret_cast<float*>(smem4);   // [staged][dp]
   float* xk = xs + static_cast<size_t>(staged) * dp;  // [dp] if staged < C
@@ -136,13 +221,13 @@ prune_kernel(const int* __restrict__ cand_ids,
     float* dst = xs + static_cast<size_t>(c) * dp;
     float a = 0.f;
     if (id >= 0) {  // uniform over the warp
-      const float* src = table + static_cast<size_t>(min(id, n - 1)) * d;
+      const int row = min(id, n - 1);
+      const float s = row_scale<LAYOUT>(t, row);
       if (vec4) {
-        const float4* s4 = reinterpret_cast<const float4*>(src);
         float4* d4 = reinterpret_cast<float4*>(dst);
 #pragma unroll 4
         for (int k = lane; k < (d >> 2); k += 32) {
-          const float4 v = __ldg(s4 + k);
+          const float4 v = load4<LAYOUT>(t, row, k, s);
           if (stage) d4[k] = v;
           a = fmaf(v.x, v.x, a);
           a = fmaf(v.y, v.y, a);
@@ -151,7 +236,7 @@ prune_kernel(const int* __restrict__ cand_ids,
         }
       } else {
         for (int k = lane; k < d; k += 32) {
-          const float v = __ldg(src + k);
+          const float v = load1<LAYOUT>(t, row, k, s);
           if (stage) dst[k] = v;
           a = fmaf(v, v, a);
         }
@@ -185,7 +270,7 @@ prune_kernel(const int* __restrict__ cand_ids,
     if (flags[j] & kDup) flags[j] = 0;
   __syncthreads();
 
-  for (int t = 0; t < m; ++t) {
+  for (int step = 0; step < m; ++step) {
     Key best{2, INFINITY, 1 << 30};
     for (int j = threadIdx.x; j < C; j += kThreads) {
       const unsigned char f = flags[j];
@@ -206,16 +291,17 @@ prune_kernel(const int* __restrict__ cand_ids,
     __syncthreads();
     const Key p = pick;
     if (p.cls == 2) {  // nothing left: the rest of the row is -1
-      for (int i = t + threadIdx.x; i < m; i += kThreads) bout[i] = -1;
+      for (int i = step + threadIdx.x; i < m; i += kThreads) bout[i] = -1;
       break;
     }
-    if (threadIdx.x == 0) bout[t] = ids[p.pos];
+    if (threadIdx.x == 0) bout[step] = ids[p.pos];
     if (p.cls == 0) {  // a keep: its cc column suppresses the live rest
       const float* xp = xs + static_cast<size_t>(p.pos) * dp;
-      if (p.pos >= staged) {  // uniform: copy the keep's row in first
-        const float* src =
-            table + static_cast<size_t>(min(ids[p.pos], n - 1)) * d;
-        for (int k = threadIdx.x; k < d; k += kThreads) xk[k] = __ldg(src + k);
+      if (p.pos >= staged) {  // uniform: decode the keep's row in first
+        const int row = min(ids[p.pos], n - 1);
+        const float s = row_scale<LAYOUT>(t, row);
+        for (int k = threadIdx.x; k < d; k += kThreads)
+          xk[k] = load1<LAYOUT>(t, row, k, s);
         xp = xk;
         __syncthreads();
       }
@@ -227,8 +313,7 @@ prune_kernel(const int* __restrict__ cand_ids,
         const float xy =
             j < staged
                 ? row_dot(xs + static_cast<size_t>(j) * dp, xp, d, vec4, lane)
-                : row_dot_ldg(table + static_cast<size_t>(min(ids[j], n - 1)) * d,
-                              xp, d, vec4, lane);
+                : row_dot_ldg<LAYOUT>(t, min(ids[j], n - 1), xp, vec4, lane);
         if (lane == 0) {
           const float cc = fmaxf((xx[j] - 2.0f * xy) + xxp, 0.0f);
           if (alpha * cc < du[j]) flags[j] |= kSupp;
@@ -241,29 +326,60 @@ prune_kernel(const int* __restrict__ cand_ids,
   }
 }
 
-}  // namespace
-
-// cand_ids int32[B, C], cand_dists f32[B, C], table f32[n, d]
-// -> out int32[B, m]. Stages the first `staged` (<= C) candidate rows in
-// shared memory: staged*dp*4 bytes, dp*4 more for the keep-row buffer when
-// staged < C, and C*13 for the per-candidate state.
-RT_API int rt_prune(const void* cand_ids, const void* cand_dists,
-                    const void* table, void* out, int B, int C, int d, int n,
-                    int m, float alpha, int fill, int staged, void* stream) {
-  const int vec4 = (d % 4 == 0) &&
-                   (reinterpret_cast<uintptr_t>(table) % 16 == 0);
-  const int dp = (d + 3) & ~3;
+template <int LAYOUT>
+int launch(const void* cand_ids, const void* cand_dists, const rt::Rows& t,
+           void* out, int B, int C, int n, int m, float alpha, int fill,
+           int vec4, int staged, cudaStream_t stream) {
+  const int dp = (t.d + 3) & ~3;
   const size_t smem =
       (static_cast<size_t>(staged) + (staged < C ? 1 : 0)) * dp *
           sizeof(float) +
       static_cast<size_t>(C) * (2 * sizeof(float) + sizeof(int) + 1);
   cudaError_t err = cudaFuncSetAttribute(
-      prune_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      prune_kernel<LAYOUT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  prune_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  prune_kernel<LAYOUT><<<B, kThreads, smem, stream>>>(
       static_cast<const int*>(cand_ids), static_cast<const float*>(cand_dists),
-      static_cast<const float*>(table), static_cast<int*>(out), C, d, n, m,
-      alpha, fill, vec4, staged);
+      t, static_cast<int*>(out), C, n, m, alpha, fill, vec4, staged);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// cand_ids int32[B, C], cand_dists f32[B, C], a vector table of `layout`
+// (csrc/common.cuh::Layout: data = rows or codes, aux = int8 scales or the
+// PQ codebook, sub = PQ subspaces) -> out int32[B, m]. Stages the first
+// `staged` (<= C) candidate rows in shared memory as f32: staged*dp*4
+// bytes, dp*4 more for the keep-row buffer when staged < C, and C*13 for
+// the per-candidate state.
+RT_API int rt_prune(const void* cand_ids, const void* cand_dists,
+                    const void* data, const void* aux, void* out, int B,
+                    int C, int d, int n, int sub, int layout, int m,
+                    float alpha, int fill, int staged, void* stream) {
+  const rt::Rows t{data, static_cast<const float*>(aux), d, sub,
+                   rt::rows_vec(layout, data, aux, d, sub)};
+  // the order of every sum, staged or not: float4 groups where the stored
+  // rows take vector loads (rows_vec), else one element per lane step
+  const int vec4 = t.vec;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (layout) {
+    case rt::kF32:
+      return launch<rt::kF32>(cand_ids, cand_dists, t, out, B, C, n, m, alpha,
+                              fill, vec4, staged, s);
+    case rt::kBF16:
+      return launch<rt::kBF16>(cand_ids, cand_dists, t, out, B, C, n, m,
+                               alpha, fill, vec4, staged, s);
+    case rt::kF16:
+      return launch<rt::kF16>(cand_ids, cand_dists, t, out, B, C, n, m, alpha,
+                              fill, vec4, staged, s);
+    case rt::kInt8:
+      return launch<rt::kInt8>(cand_ids, cand_dists, t, out, B, C, n, m,
+                               alpha, fill, vec4, staged, s);
+    case rt::kPQ:
+      return launch<rt::kPQ>(cand_ids, cand_dists, t, out, B, C, n, m, alpha,
+                             fill, vec4, staged, s);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

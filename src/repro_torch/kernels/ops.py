@@ -13,7 +13,11 @@
                      ``bitset.test_and_set`` -> ``gather_dist``, each
                      dispatched, kept as the fused hop's bit-identical
                      oracle. An explicit ``edge_impl``/``dist_impl`` pin
-                     routes any hop through it, as in the JAX package.
+                     routes any hop through it, as in the JAX package;
+  * ``"legacy"``   — construction prune only: the eager ``[C, C]`` oracle
+                     (``core/rng.py::prune_batch``) on rows decoded by
+                     ``storage.decode_rows``, plain torch wherever the
+                     tensors live; kept ids bit-identical to ``"torch"``.
 
 ``select_edges`` and ``hop``'s integer outputs are bit-identical across
 backends; distances agree to f32 tolerance; ``prune``'s kept ids agree
@@ -23,23 +27,23 @@ once to q's dtype), except on a row that sees no key (kernel 0, plain
 version the mean of V).
 
 Vector tables may be stored in any codec (``core/storage.py``):
-``gather_dist`` and ``hop`` launch the kernel of the table's layout, or
-raise. ``prune`` takes a codec table on ``"torch"`` only: the build runs in
-f32 and encodes afterwards, so the TPU prune kernel's codec body is on no
-path (ROADMAP queue 2, kernel 4), and a codec table on CUDA raises
-``NotImplementedError`` rather than decoding and running the f32 kernel.
+``gather_dist``, ``hop`` and ``prune`` launch the kernel of the table's
+layout (f32, bf16, f16, int8, PQ), or raise. ``pairwise_dist`` takes dense
+f32, bf16 or f16 rows, as the TPU kernel does.
 
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero the
 kernel wrappers' launch counters (plain integers on each wrapper, raised
 once per launch and nowhere else); :func:`layout_counts` reads the
-per-layout counts of ``gather_dist`` and ``hop``.
+per-layout counts of ``gather_dist``, ``hop`` and ``prune``.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.core import bitset as _bitset
+from repro_torch.core import rng as _rng
 from repro_torch.core import storage as _storage
+from repro_torch.kernels import distance as _distance
 from repro_torch.kernels import edge_select as _edge_select
 from repro_torch.kernels import flash_attention as _flash
 from repro_torch.kernels import gather_distance as _gather
@@ -48,13 +52,14 @@ from repro_torch.kernels import prune as _prune
 from repro_torch.kernels import ref as _ref
 
 __all__ = [
-    "gather_dist", "select_edges", "prune", "hop", "flash_attention",
-    "resolve_impl", "launch_counts", "reset_launch_counts", "layout_counts",
-    "KERNELS",
+    "pairwise_dist", "gather_dist", "select_edges", "prune", "hop",
+    "flash_attention", "resolve_impl", "launch_counts",
+    "reset_launch_counts", "layout_counts", "KERNELS",
 ]
 
 # kernel name -> its wrapper (each holds a ``launches`` counter)
 KERNELS = {
+    "pairwise_dist": _distance.pairwise_dist_cuda,
     "gather_dist": _gather.gather_dist_cuda,
     "select_edges": _edge_select.select_edges_cuda,
     "hop": _hop.hop_cuda,
@@ -97,6 +102,14 @@ def resolve_impl(op: str, impl: str, on: torch.Tensor,
     return impl
 
 
+def pairwise_dist(q, x, *, metric="l2", impl="auto"):
+    """All-pairs distance: q [Bq, D], x [N, D] (f32, bf16 or f16) ->
+    f32[Bq, N]; l2 squared or ip negated."""
+    if resolve_impl("pairwise_dist", impl, q) == "torch":
+        return _ref.pairwise_dist(q, x, metric=metric)
+    return _distance.pairwise_dist_cuda(q, x, metric=metric)
+
+
 def gather_dist(q, table, ids, *, metric="l2", impl="auto"):
     """Fused gather + masked distance: q f32[B, d], table [n, d] in any
     stored layout or a codec struct, ids int32[B, M] (-1 masked) ->
@@ -122,23 +135,25 @@ def prune(cand_ids, cand_dists, table, *, m, alpha=1.0, fill=True,
           impl="auto", cand_vecs=None):
     """Construction prune -> int32[B, m] kept ids.
 
-    ``cand_vecs`` [B, C, d]: the already-gathered candidate rows, which the
-    plain version reuses (gathers are exact, so results are the same); the
-    kernel gathers its rows from ``table`` itself, and takes f32 tables
-    only: a codec table on CUDA raises ``NotImplementedError``.
+    ``table`` [n, d] in any stored layout. ``cand_vecs`` [B, C, d]: the
+    already-gathered candidate rows, which the plain and legacy versions
+    reuse (gathers are exact, so results are the same); the kernel gathers
+    and decodes its rows from ``table`` itself.
     """
-    if resolve_impl("prune", impl, cand_ids) == "torch":
+    impl = resolve_impl("prune", impl, cand_ids,
+                        allowed=("auto", "cuda", "torch", "legacy"))
+    if impl == "legacy":
+        if cand_vecs is None:
+            cand_vecs = _storage.decode_rows(table, cand_ids.clamp(
+                0, _storage.table_n(table) - 1).long())
+        return _rng.prune_batch(cand_ids, cand_dists, cand_vecs, m=m,
+                                alpha=alpha, fill=fill)
+    if impl == "torch":
         if cand_vecs is not None:
             return _ref.prune_vecs(cand_ids, cand_dists, cand_vecs, m=m,
                                    alpha=alpha, fill=fill)
         return _ref.prune(cand_ids, cand_dists, table, m=m, alpha=alpha,
                           fill=fill)
-    if not (isinstance(table, torch.Tensor)
-            and table.dtype == torch.float32):
-        raise NotImplementedError(
-            "prune: the CUDA kernel takes float32 tables only; its codec "
-            "body is on no path (the build runs in f32 and encodes after): "
-            "see ROADMAP queue 2, kernel 4 (prune codec body)")
     return _prune.prune_cuda(cand_ids, cand_dists, table, m=m, alpha=alpha,
                              fill=fill)
 

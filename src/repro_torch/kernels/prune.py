@@ -1,11 +1,16 @@
 """alpha-RNG construction prune: the CUDA kernel's wrapper.
 
 Replaces the TPU kernel ``repro/kernels/prune.py::_prune_kernel`` (line
-44). The kernel is ``csrc/prune.cu``; its header says what bounds it on the
-H100 (memory: each build node's C candidate rows) and what its design does
-about that (one block per node, the rows gathered once, as many as fit into
-shared memory and the rest read from global memory by the sweeps). The
-plain version is ``kernels/ref.py::prune`` (``plain`` here).
+44) with its codec body (lines 95-105, set-up 207-219): the table may be
+stored in any layout the search kernels take (f32, bf16, f16,
+``Int8Vectors``, ``PQVectors``). The kernel is ``csrc/prune.cu``; its
+header says what bounds it on the H100 (memory: each build node's C
+candidate rows) and what its design does about that (one block per node,
+the rows gathered and decoded once, as many as fit into shared memory as
+f32 and the rest decoded from global memory by the sweeps). The plain
+version is ``kernels/ref.py::prune`` (``plain`` here), which decodes
+through ``storage.decode_rows``. The wrapper counts its launches in total
+(``launches``) and per layout (``layout_launches``).
 """
 from __future__ import annotations
 
@@ -15,6 +20,7 @@ import functools
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.kernels import gather_distance as _gather
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["prune_cuda", "plain", "smem_plan"]
@@ -49,21 +55,23 @@ def smem_plan(C: int, d: int) -> tuple[int, int]:
 @functools.cache
 def _entry():
     f = _build.library("prune").rt_prune
-    f.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
+    f.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 \
         + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
 
 def prune_cuda(cand_ids, cand_dists, table, *, m, alpha=1.0, fill=True):
-    """cand_ids int32[B, C], cand_dists f32[B, C], table f32[n, d] (CUDA)
-    -> int32[B, m] kept ids, -1 padded. Launches the kernel or raises."""
+    """cand_ids int32[B, C], cand_dists f32[B, C], table [n, d] in any
+    stored layout (``gather_distance.table_args``), all on one CUDA device
+    -> int32[B, m] kept ids, -1 padded. Launches the kernel of the table's
+    layout or raises."""
     dev = cand_ids.device
     _build.check_tensor(cand_ids, "cand_ids", torch.int32, 2, dev)
     _build.check_tensor(cand_dists, "cand_dists", torch.float32, 2, dev)
-    _build.check_tensor(table, "table", torch.float32, 2, dev)
+    t = _gather.table_args(table, dev)
     B, C = cand_ids.shape
-    n, d = table.shape
+    n, d = t.n, t.d
     if tuple(cand_dists.shape) != (B, C):
         raise ValueError("prune: cand_ids and cand_dists shapes differ")
     staged, _ = smem_plan(C, d)
@@ -74,12 +82,14 @@ def prune_cuda(cand_ids, cand_dists, table, *, m, alpha=1.0, fill=True):
         return out.fill_(-1)
     with torch.cuda.device(dev):
         rc = _entry()(cand_ids.data_ptr(), cand_dists.data_ptr(),
-                      table.data_ptr(), out.data_ptr(), B, C, d, n, m,
-                      float(alpha), int(bool(fill)), staged,
-                      _build.stream_of(dev))
+                      t.data.data_ptr(), t.aux_ptr, out.data_ptr(), B, C, d,
+                      n, t.sub, t.code, m, float(alpha), int(bool(fill)),
+                      staged, _build.stream_of(dev))
     _build.check(rc, "prune", "prune")
     prune_cuda.launches += 1
+    prune_cuda.layout_launches[t.layout] += 1
     return out
 
 
 prune_cuda.launches = 0
+prune_cuda.layout_launches = dict.fromkeys(_gather.LAYOUTS, 0)

@@ -21,7 +21,7 @@ from repro_torch.core import segment_tree
 from repro_torch.core import storage as _storage
 
 __all__ = [
-    "gather_dist", "edge_scan_valid", "select_edges", "hop", "prune",
+    "pairwise_dist", "gather_dist", "edge_scan_valid", "select_edges", "hop", "prune",
     "prune_vecs", "attention",
 ]
 
@@ -34,6 +34,24 @@ def _rows(table, ids: torch.Tensor) -> torch.Tensor:
     table, as a JAX gather clamps) as f32."""
     return _storage.decode_rows(
         table, ids.clamp(0, _storage.table_n(table) - 1).long())
+
+
+def pairwise_dist(q, x, metric="l2"):
+    """q[Bq, D], x[N, D] (f32, bf16 or f16, upcast to f32) -> f32[Bq, N]
+    (``repro/kernels/ref.py:28``).
+
+    l2: squared euclidean distance ``‖q‖² − 2q·x + ‖x‖²``; ip: ``−q·x``.
+    """
+    q = q.float()
+    x = x.float()
+    dot = q @ x.T
+    if metric == "ip":
+        return -dot
+    if metric != "l2":
+        raise ValueError(f"unknown metric {metric!r}")
+    qq = (q * q).sum(1, keepdim=True)
+    xx = (x * x).sum(1)
+    return qq - 2.0 * dot + xx[None, :]
 
 
 def gather_dist(q, table, ids, metric="l2"):

@@ -16,7 +16,11 @@ fit in shared memory). Flash attention agrees with its plain version over
 the variant grid, with q, k and v in the layout the projections leave
 (``[B, S, H, Dh]`` viewed as ``[B, H, S, Dh]``), within 1e-5 in f32 and, in bf16, one ulp plus that 1e-5
 (both round one f32 result once, summed in other orders), and gives 0 on
-a row that sees no key, as the TPU kernel does.
+a row that sees no key, as the TPU kernel does. The all-pairs distance
+kernel runs ``repro``'s shape sweep (tests/test_kernels.py) and one ragged
+large shape in f32, bf16 and f16, l2 and ip, within 1e-5 of its terms; the
+prune runs on every stored layout (bf16, f16, int8, PQ) at d = 128 and
+1024, kept ids identical to the plain version's.
 """
 import numpy as np
 import pytest
@@ -25,6 +29,7 @@ import torch
 from repro_torch.core import bitset
 from repro_torch.core import storage
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.distance import pairwise_dist_cuda
 from repro_torch.kernels.edge_select import select_edges_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gather_distance import gather_dist_cuda
@@ -203,6 +208,79 @@ def test_prune_at_model_width(dev, C, d, B):
         assert torch.equal(got, want)
 
 
+@pytest.mark.parametrize("layout", ["bf16", "f16", "int8", "pq"])
+@pytest.mark.parametrize("C,d,B", [(80, 128, 256), (144, 1024, 256)])
+def test_prune_codec(dev, layout, C, d, B):
+    """The prune's codec body: rows decoded once as gathered (staged as
+    f32) and, at d = 1024 where only some rows fit in shared memory,
+    decoded element by element in the sweeps: kept ids identical to the
+    plain version on the decoded rows."""
+    g = torch.Generator().manual_seed(C + d)
+    n = 2000
+    x = torch.randn((n, d), generator=g).to(dev)
+    table = storage.encode_vectors(x, LAYOUTS[layout])
+    dec = storage.decode_vectors(table)
+    node = torch.randint(0, n, (B,), generator=g).to(dev)
+    cand = torch.randint(-1, n, (B, C), generator=g,
+                         dtype=torch.int32).to(dev)
+    cand[:, C - 1] = cand[:, 3]          # a duplicate past the staged rows
+    cand = torch.where(cand == node[:, None].int(), -1, cand).contiguous()
+    cvec = dec[cand.clamp_min(0).long()]
+    du = torch.where(cand >= 0,
+                     ((cvec - dec[node][:, None, :]) ** 2).sum(-1),
+                     torch.inf).contiguous()
+    for alpha, fill in ((1.0, True), (1.2, False)):
+        ops.reset_launch_counts()
+        got = ops.prune(cand, du, table, m=16, alpha=alpha, fill=fill)
+        assert ops.layout_counts()[f"prune[{layout}]"] == 1
+        want = ref.prune(cand, du, table, m=16, alpha=alpha, fill=fill)
+        assert torch.equal(got, want)
+        # the plain versions on the decoded f32 rows give the same ids
+        assert torch.equal(
+            want, ref.prune(cand, du, dec, m=16, alpha=alpha, fill=fill))
+
+
+# repro's sweep (tests/test_kernels.py) and one ragged large shape
+DIST_SHAPES = [(8, 8, 8), (16, 32, 24), (37, 65, 40), (128, 128, 64),
+               (3, 200, 130), (1000, 70001, 131)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16],
+                         ids=["f32", "bf16", "f16"])
+@pytest.mark.parametrize("bq,n,d", DIST_SHAPES)
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+def test_pairwise_dist(dev, metric, bq, n, d, dtype):
+    g = torch.Generator().manual_seed(bq * 1000 + n + d)
+    q = torch.randn((bq, d), generator=g).to(dev, dtype)
+    x = torch.randn((n, d), generator=g).to(dev, dtype)
+    ops.reset_launch_counts()
+    got = ops.pairwise_dist(q, x, metric=metric)
+    assert ops.launch_counts()["pairwise_dist"] == 1
+    want = ref.pairwise_dist(q, x, metric=metric)
+    assert got.dtype == torch.float32 and got.shape == (bq, n)
+    qf, xf = q.float(), x.float()
+    tol = 1e-5 * ((qf * qf).sum(1, keepdim=True) + (xf * xf).sum(1)[None])
+    assert bool(((got - want).abs() <= tol).all())
+
+
+def test_pairwise_dist_rejects_bad_inputs(dev):
+    q = torch.randn((4, 8), device=dev)
+    x = torch.randn((6, 8), device=dev)
+    with pytest.raises(TypeError):
+        pairwise_dist_cuda(q, x.half())
+    with pytest.raises(TypeError):
+        pairwise_dist_cuda(q.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        pairwise_dist_cuda(q, torch.randn((8, 6), device=dev).t())
+    with pytest.raises(ValueError, match="agree"):
+        pairwise_dist_cuda(q, x[:, :5].contiguous())
+    with pytest.raises(ValueError, match="CUDA"):
+        pairwise_dist_cuda(q, x.cpu())
+    with pytest.raises(ValueError, match="metric"):
+        pairwise_dist_cuda(q, x, metric="cos")
+
+
 # B, Hq, Hkv, Sq, Skv, Dh, keyword arguments
 FLASH = {
     "causal": (2, 4, 4, 32, 32, 128, {}),
@@ -304,9 +382,13 @@ def test_cuda_rejects_bad_inputs(dev):
         gather_dist_cuda(p["q"], pq._replace(
             codebook=pq.codebook[:, :8].contiguous()),
                          p["u"])
-    # the prune kernel takes f32 only: a codec table raises, never decodes
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.prune(p["u"], p["u"].float(), i8, m=4, impl="cuda")
+    # the prune checks a codec table's every leaf too
+    with pytest.raises(TypeError):
+        ops.prune(p["u"], p["u"].float(), i8._replace(
+            scales=i8.scales.double()), m=4, impl="cuda")
+    with pytest.raises(ValueError, match="agree"):
+        ops.prune(p["u"], p["u"].float(), pq._replace(
+            codebook=pq.codebook[:, :8].contiguous()), m=4, impl="cuda")
 
 
 @pytest.mark.parametrize("layout", ["bf16", "f16", "int8", "pq"])

@@ -1,7 +1,8 @@
 """The port stands alone: no JAX, nothing of ``repro``, no hidden fallback.
 
   * No file under ``src/repro_torch/`` (``core/``, ``kernels/``,
-    ``configs/``, ``models/``, ``sharding/``, ``serve/``, ``launch/``),
+    ``configs/``, ``models/``, ``sharding/``, ``serve/``, ``launch/``,
+    ``bench/``),
     and neither ``chip_smoke.py`` nor ``prune_time.py``, imports ``jax``, ``repro``, ``msgpack`` or
     ``ml_dtypes`` (an AST scan), nor ``zstandard`` outside
     ``compressio.py``, which imports it where it compresses and only when
@@ -53,7 +54,7 @@ def test_scan_covers_every_port_package():
     dirs = {p.parent.relative_to(PORT).as_posix() for p in _port_files()
             if PORT in p.parents}
     assert {"core", "kernels", "configs", "models", "sharding", "serve",
-            "launch"} <= dirs
+            "launch", "bench"} <= dirs
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -78,6 +79,9 @@ def test_import_with_reference_and_codec_packages_blocked():
         "from repro_torch.models import api, attention, transformer\n"
         "from repro_torch.launch import serve as launch_serve\n"
         "from repro_torch.sharding import partitioning\n"
+        "import repro_torch.bench.roofline, repro_torch.bench.buildpath\n"
+        "from repro_torch.core import rng\n"
+        "from repro_torch.kernels import distance\n"
         "print('ok')\n"
     )
     env = {**os.environ, "PYTHONPATH": str(ROOT / "src")}
@@ -109,6 +113,16 @@ def test_entry_points_raise_without_a_card(no_card):
     idx = RangeGraphIndex.build(vectors, rng.uniform(size=32), device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         RangeGraphIndex.from_numpy(idx.to_numpy())
+
+
+def test_benchmarks_raise_without_a_card(no_card, tmp_path):
+    """The benchmarks measure the card unless told ``--device cpu``."""
+    from repro_torch.bench import buildpath, roofline
+
+    for mod in (roofline, buildpath):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            mod.main(["--smoke", "--out", str(tmp_path / "x.json")])
+    assert not (tmp_path / "x.json").exists()
 
 
 def _smoke(cwd: pathlib.Path, script: pathlib.Path):

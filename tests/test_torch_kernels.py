@@ -362,7 +362,12 @@ def test_auto_on_cpu_runs_plain_and_launches_nothing():
     tops.prune(_t(cand), _t(du), _t(tbl), m=4)
     qkv = torch.randn((3, 1, 2, 9, 8)).unbind(0)
     tops.flash_attention(*qkv)
+    np.testing.assert_array_equal(
+        tops.pairwise_dist(q, table).numpy(),
+        tref.pairwise_dist(q, table).numpy())
+    tops.prune(_t(cand), _t(du), _t(tbl), m=4, impl="legacy")
     assert tops.launch_counts() == {k: 0 for k in tops.KERNELS}
+    assert "pairwise_dist" in tops.KERNELS
 
 
 def test_cuda_impl_on_cpu_tensors_raises():
@@ -383,11 +388,17 @@ def test_cuda_impl_on_cpu_tensors_raises():
     qkv = torch.randn((3, 1, 2, 9, 8)).unbind(0)
     with pytest.raises(RuntimeError, match="CUDA"):
         tops.flash_attention(*qkv, impl="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        tops.pairwise_dist(q, table, impl="cuda")
     # the kernel wrappers themselves refuse CPU tensors
     with pytest.raises(ValueError, match="CUDA tensor"):
         tops.KERNELS["gather_dist"](q, table, _t(p["pre"]))
     with pytest.raises(ValueError, match="CUDA tensor"):
         tops.KERNELS["flash_attention"](*qkv)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tops.KERNELS["pairwise_dist"](q, table)
+    with pytest.raises(ValueError, match="CUDA tensor"):
+        tops.KERNELS["prune"](_t(cand), _t(du), _t(tbl), m=4)
     with pytest.raises(ValueError, match="unknown impl"):
         tops.gather_dist(q, table, _t(p["pre"]), impl="pallas")
 
