@@ -6,7 +6,9 @@ the full-size run, one card). It
 
   1. prints the card's name and power limit (``nvidia-smi``);
   2. builds the port's six CUDA kernels from ``src/repro_torch/csrc`` with
-     ``nvcc`` (one process per source, all at once; set-up time);
+     ``nvcc`` (one process per source, all at once; set-up time), and
+     prints the registers and spills of each kernel function, the two
+     tensor-core kernels' (flash_attention, distance) among them;
   3. drives the main path with every launch counter at 0: builds a
      ``RangeGraphIndex`` on the card over ``vector_dataset`` data (n = 1M,
      d = 128, 64 clusters, uniform attributes, seed 0; ``BuildConfig(m=16,
@@ -60,16 +62,19 @@ the full-size run, one card). It
      requests served with every op on plain torch, a 4,096-item subsample
      embedded with attention on plain torch, and peak device memory;
      fails if flash_attention, prune, gather_dist or hop never launched,
-     if serving added a cache entry, if recall is not within 0.01 of the
+     unless every flash launch (28 layers x each embed call) went to its
+     tensor-core body, if serving added a cache entry, if recall is not within 0.01 of the
      all-plain path's, or if a subsample row's cosine to the plain
      attention's is below 0.9999 or an element differs by more than 0.05;
      profiles one embed call;
   11. holds the flash-attention kernel against its plain version at the
-     path's shape, at S = 4,096 and over a variant grid (window, softcap,
-     bidirectional, q_offset; q, k and v in the projections' transposed
-     layout; f32 within 1e-5, bf16 within one ulp and the f32 tolerance,
-     see ``bf16_tol``), with SDPA's time beside it where SDPA computes the
-     same function; the prune kernel at d = 1,024 and C = 144 on one build
+     path's shape (bf16, f16 and f32), at S = 4,096 and over a variant grid
+     (window, softcap, bidirectional, q_offset; q, k and v in the
+     projections' transposed layout; f32 within 1e-5, bf16 and f16 within
+     one bf16 ulp and the f32 tolerance, see ``bf16_tol``), and fails a
+     shape whose launch went to another body than its dtype and head dim
+     name (16-bit: the tensor-core body; f32: the CUDA-core one), with
+     SDPA's time beside it where SDPA computes the same function; the prune kernel at d = 1,024 and C = 144 on one build
      chunk's own candidates (``prune_check_wide``); and gather_dist and
      the hop on the lm index at the served batch's shapes (B = 64, d =
      1,024), as in step 5;
@@ -132,6 +137,7 @@ LM_MIN_COSINE = 0.9999
 LM_MAX_ABS_DIFF = 0.05
 LM_MAX_BATCH = 64         # the engine's batch: the served kernels' B
 PEAK_BF16_FLOPS = 989e12  # dense tensor-core peak, bf16 and f16
+PEAK_TF32_FLOPS = 495e12  # dense tensor-core peak, TF32
 # the roofline phase fails a row above this fraction of its bound
 ROOF_MAX_FRACTION = 1.05
 # roofline row -> the kernel (ops.KERNELS name) it launches
@@ -146,6 +152,7 @@ PEAK_FLOPS = {"torch.float32": PEAK_F32_FLOPS,
 FLASH_SHAPES = {
     "path": (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, "bfloat16", {}),
     "long": (1, 16, 8, 4096, 4096, 128, "bfloat16", {}),
+    "path f16": (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, "float16", {}),
     "path f32": (LM_BATCH, 16, 8, LM_SEQ, LM_SEQ, 128, "float32", {}),
     "window": (4, 16, 8, 512, 512, 128, "bfloat16", {"window": 128}),
     "window f32": (4, 16, 8, 512, 512, 128, "float32", {"window": 128}),
@@ -680,8 +687,9 @@ def flash_checks(torch) -> dict:
     offset), its ms as library_ms."""
     import torch.nn.functional as F
 
-    from repro_torch.kernels import ref
-    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.flash_attention import body_of, \
+        flash_attention_cuda
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -697,11 +705,18 @@ def flash_checks(torch) -> dict:
                         dtype=dtype).transpose(1, 2)
         v = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
                         dtype=dtype).transpose(1, 2)
+        ops.reset_launch_counts()
         got = flash_attention_cuda(q, k, v, **kw)
+        body = [b for b, c in flash_attention_cuda.body_launches.items()
+                if c][0]
         want = ref.attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
-        if dtype == torch.float32:
+        if body != body_of(dtype, Dh):
+            print(f"flash_attention[{name}]: launched the {body} body, "
+                  f"not {body_of(dtype, Dh)}", flush=True)
+            good = False
+        elif dtype == torch.float32:
             good = float(err.max()) <= FLASH_F32_TOL
         else:
             tol = bf16_tol(torch, got, want)
@@ -729,12 +744,13 @@ def flash_checks(torch) -> dict:
         bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[str(dtype)])
         rec = dict(ok=good, max_abs_err=float(err.max()), ms=kms,
                    plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
+                   body=body,
                    shape=f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={S} Dh={Dh} "
                          f"{dt}"
                          + (f" {json.dumps(kw)}" if kw else " causal"))
         out[name] = rec
-        print(f"kernel flash_attention[{name}] [{rec['shape']}]: "
-              f"{kms:.4f} ms, plain {pms:.4f} ms, SDPA "
+        print(f"kernel flash_attention[{name}] [{rec['shape']}] ({body} "
+              f"body): {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
               + ("n/a" if lms is None else f"{lms:.4f} ms")
               + f", bound {bms:.4f} ms ({by}), max_abs_err "
               f"{rec['max_abs_err']:.3g}" + ("" if good else "  DISAGREES"),
@@ -943,6 +959,8 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
     results = engine.flush()
     serve_s = time.perf_counter() - t0
     counts = ops.launch_counts()
+    bodies = {k: v for k, v in ops.body_counts().items()
+              if k.startswith("flash_attention")}
     st = engine.stats
     entries2 = st["compiles"]
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1020,12 +1038,21 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
         "peak_device_memory_gib": round(peak / 2**30, 2),
         "index_bytes": int(index.nbytes),
         "launches": counts,
+        "flash_bodies": bodies,
     })
     out["phase_s"] = round(time.perf_counter() - t_phase, 1)
     never = [k for k in ("flash_attention", "prune", "gather_dist", "hop")
              if counts[k] == 0]
     if never:
         fail(f"kernels never launched on the lm serve path: {never}")
+    # every layer of every embed call on the tensor-core body
+    calls = -(-n_items // LM_BATCH) + -(-LM_QUERIES // LM_BATCH)
+    want_flash = cfg.n_layers * calls
+    if counts["flash_attention"] != want_flash or \
+            bodies["flash_attention[wgmma]"] != want_flash:
+        fail(f"lm serve: {counts['flash_attention']} flash launches, "
+             f"{json.dumps(bodies)}; expected {want_flash} ({cfg.n_layers} "
+             f"layers x {calls} embed calls), all on the wgmma body")
     if entries2 != entries1 or entries1 == entries0:
         print(f"lm serve: cache entries {entries0} -> {entries1} after "
               f"warmup -> {entries2} after serving", flush=True)
@@ -1066,8 +1093,10 @@ def roofline_phase(torch) -> tuple[list, dict, dict, bool]:
           f"stream): {peaks['peak_gflops'] / 1e3:.2f} TFLOP/s (by k: "
           + ", ".join(f"{k}: {v / 1e3:.2f}" for k, v in
                       peaks["matmul_gflops_by_k"].items())
-          + f"), {peaks['peak_gbps'] / 1e3:.3f} TB/s; data sheet "
-          f"{PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32, "
+          + f"); TF32 product {peaks['peak_tf32_gflops'] / 1e3:.2f} TFLOP/s "
+          f"at k = {peaks['tf32_k']}; {peaks['peak_gbps'] / 1e3:.3f} TB/s; "
+          f"data sheet {PEAK_F32_FLOPS / 1e12:.0f} TFLOP/s f32, "
+          f"{PEAK_TF32_FLOPS / 1e12:.0f} TF32, "
           f"{PEAK_BYTES_PER_S / 1e12:.2f} TB/s", flush=True)
     p = roofline.make_problem(64, 100_000, 128, 16, dev)
     ops.reset_launch_counts()
@@ -1102,9 +1131,11 @@ def pairwise_checks(torch, q_roof, x_roof, q_1m, x_1m) -> dict:
     the 1M path's ground-truth shape (1,000 queries against the 1M index's
     f32 vectors: a 4 GB output), for f32, bf16 and f16 inputs, l2 and ip.
     f32 within DIST_RTOL of ``‖q‖² + ‖x‖²``, the half types within
-    ``bf16_tol``; ms, plain ms, the bound (f32 operations at 67 TFLOP/s,
-    or bytes) and, for f32 l2, cuBLAS SGEMM of the product alone as
-    library_ms."""
+    ``bf16_tol``; ms, plain ms, the bound and, for f32 l2, cuBLAS SGEMM of
+    the product alone as library_ms. The bound follows the kernel's
+    units: f32 inputs run the product as 3xTF32, 3 x 2*Bq*N*D at 495
+    TFLOP/s; bf16 and f16 inputs as one product, 2*Bq*N*D at 989; or the
+    bytes (inputs read once, the f32 output written once), the larger."""
     from repro_torch.kernels import ref
     from repro_torch.kernels.distance import pairwise_dist_cuda
 
@@ -1149,10 +1180,13 @@ def pairwise_checks(torch, q_roof, x_roof, q_1m, x_1m) -> dict:
                         rec["library_ms"] = time_ms(
                             torch, lambda i: torch.mm(q, xt), iters=it,
                             warmup=2)
-                    flops = 2.0 * Bq * N * D + (3.0 * Bq * N
-                                                if metric == "l2" else Bq * N)
+                    if dtype == torch.float32:
+                        flops, peak = 3 * 2.0 * Bq * N * D, PEAK_TF32_FLOPS
+                    else:
+                        flops, peak = 2.0 * Bq * N * D, PEAK_BF16_FLOPS
                     nbytes = (Bq + N) * D * q.element_size() + Bq * N * 4
-                    rec["bound_ms"], rec["bound_by"] = bound_ms(nbytes, flops)
+                    rec["bound_ms"], rec["bound_by"] = bound_ms(
+                        nbytes, flops, peak)
                 rec["shape"] = (f"Bq={q.shape[0]} N={x.shape[0]} "
                                 f"d={q.shape[1]} {dt} {metric}")
                 out[name] = rec
@@ -1580,6 +1614,8 @@ def run(args):
         "bound_ms": path["bound_ms"], "bound_by": path["bound_by"],
         "library_ms": path["library_ms"], "shape": path["shape"],
         "max_abs_err_f32": flash["path f32"]["max_abs_err"],
+        "max_abs_err_f16": flash["path f16"]["max_abs_err"],
+        "lm_path_bodies": lm["flash_bodies"],
         "at_S4096": {k: flash["long"][k] for k in
                      ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "max_abs_err")}})

@@ -12,9 +12,13 @@ fraction of the roofline bound
 
 where both peaks are measured on the device right before the kernel rows
 (:func:`measure_peaks`: an f32 matrix product with TF32 off, at k = 1,024
-and 8,192 keeping the faster, and a 128 MiB elementwise stream). A
-fraction above 1 means the working set stayed in cache or a count is
-wrong. Times are the least single call, by CUDA events on the card.
+and 8,192 keeping the faster, and a 128 MiB elementwise stream). The
+pairwise_dist row's kernel runs its product as 3xTF32 on the tensor cores
+(three TF32 products per f32 one), so its operations term is 3 x flops
+over a TF32 product peak measured the same way (``torch.mm`` with TF32
+on, k = 8,192: a yardstick only, the port never calls it). A fraction
+above 1 means the working set stayed in cache or a count is wrong. Times
+are the least single call, by CUDA events on the card.
 
 The hop updates its ``visited`` bitset in place (``ops.hop``), so every
 warm-up and timed call gets its own zeroed bitset, made before timing:
@@ -47,29 +51,37 @@ __all__ = ["measure_peaks", "make_problem", "kernel_rows", "run_kernels",
            "main"]
 
 STREAM_FLOATS = 32 * 1024 * 1024      # 128 MiB of f32
+TF32_K = 8192                         # the TF32 peak's product size
+
+
+def _mm_flops(device, k, iters, tf32) -> float:
+    """FLOP/s of a k x k x k f32 ``torch.mm``, TF32 on or off, the least
+    single call of ``iters``."""
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = tf32
+    try:
+        a = torch.ones((k, k), dtype=torch.float32, device=device)
+        b = torch.ones((k, k), dtype=torch.float32, device=device)
+        c = torch.empty((k, k), dtype=torch.float32, device=device)
+        t = common.time_calls(lambda i: torch.mm(a, b, out=c), device,
+                              iters=iters, warmup=2, reduce="min")
+        return 2.0 * k ** 3 / t
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
 
 
 def measure_peaks(device: torch.device, iters=10,
                   sizes=(1024, 8192)) -> dict:
     """Measured device peaks: f32 matrix-product FLOP/s (TF32 off, the
-    fastest of ``sizes``) and the bytes/s of an out-of-cache elementwise
-    stream (one read and one write of 128 MiB)."""
-    prev = torch.backends.cuda.matmul.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    try:
-        peak_flops = 0.0
-        by_size = {}
-        for k in sizes:
-            a = torch.ones((k, k), dtype=torch.float32, device=device)
-            b = torch.ones((k, k), dtype=torch.float32, device=device)
-            c = torch.empty((k, k), dtype=torch.float32, device=device)
-            t = common.time_calls(lambda i: torch.mm(a, b, out=c), device,
-                                  iters=iters, warmup=2, reduce="min")
-            by_size[k] = 2.0 * k ** 3 / t
-            peak_flops = max(peak_flops, by_size[k])
-            del a, b, c
-    finally:
-        torch.backends.cuda.matmul.allow_tf32 = prev
+    fastest of ``sizes``), the TF32 product's FLOP/s (TF32 on, k =
+    TF32_K or the largest of ``sizes`` if smaller; on the CPU, which has
+    no TF32, an f32 product's) and the
+    bytes/s of an out-of-cache elementwise stream (one read and one write
+    of 128 MiB)."""
+    by_size = {k: _mm_flops(device, k, iters, False) for k in sizes}
+    peak_flops = max(by_size.values())
+    tf32_k = min(TF32_K, max(sizes))
+    peak_tf32 = _mm_flops(device, tf32_k, iters, True)
     x = torch.ones((STREAM_FLOATS,), dtype=torch.float32, device=device)
     y = torch.empty_like(x)
     t = common.time_calls(lambda i: torch.mul(x, 1.5, out=y), device,
@@ -77,6 +89,8 @@ def measure_peaks(device: torch.device, iters=10,
     peak_bw = 2.0 * x.numel() * x.element_size() / t
     return {
         "peak_gflops": peak_flops / 1e9,
+        "peak_tf32_gflops": peak_tf32 / 1e9,
+        "tf32_k": tf32_k,
         "peak_gbps": peak_bw / 1e9,
         "ridge_intensity_flop_per_byte": peak_flops / peak_bw,
         "matmul_gflops_by_k": {str(k): v / 1e9 for k, v in by_size.items()},
@@ -158,9 +172,14 @@ def run_kernels(p, peaks, iters, warmup=2) -> list[dict]:
     """One record per kernel row; a row whose call raises records the
     error (``--strict`` and ``chip_smoke.py`` fail on it)."""
     rows = []
-    pf = peaks["peak_gflops"] * 1e9
     pb = peaks["peak_gbps"] * 1e9
     for name, fn, flops, nbytes in kernel_rows(p, iters, warmup):
+        # ops over the peak of the units the kernel runs on: pairwise_dist
+        # runs 3xTF32, three TF32 products for each f32 one of its count
+        if name == "pairwise_dist":
+            ops, pf = 3 * flops, peaks["peak_tf32_gflops"] * 1e9
+        else:
+            ops, pf = flops, peaks["peak_gflops"] * 1e9
         row = {"kernel": name, "flops": int(flops), "bytes": int(nbytes),
                "intensity_flop_per_byte": flops / nbytes}
         try:
@@ -170,7 +189,7 @@ def run_kernels(p, peaks, iters, warmup=2) -> list[dict]:
             row["error"] = f"{type(e).__name__}: {e}"
             rows.append(row)
             continue
-        t_bound = max(flops / pf, nbytes / pb)
+        t_bound = max(ops / pf, nbytes / pb)
         row.update({
             "time_us": t * 1e6,
             "achieved_gflops": flops / t / 1e9,
@@ -178,7 +197,7 @@ def run_kernels(p, peaks, iters, warmup=2) -> list[dict]:
             "bound_us": t_bound * 1e6,
             "achieved_fraction": t_bound / t,
             "bottleneck": (
-                "compute" if flops / pf >= nbytes / pb else "memory"),
+                "compute" if ops / pf >= nbytes / pb else "memory"),
         })
         rows.append(row)
     return rows
@@ -188,7 +207,7 @@ def failures_of(rows, peaks) -> list[str]:
     """What ``--strict`` fails on: errored rows, non-finite numbers."""
     out = []
     if not all(math.isfinite(peaks[k]) and peaks[k] > 0
-               for k in ("peak_gflops", "peak_gbps")):
+               for k in ("peak_gflops", "peak_tf32_gflops", "peak_gbps")):
         out.append(f"non-finite device peaks: {peaks}")
     for r in rows:
         if "error" in r:
@@ -242,7 +261,8 @@ def main(argv=None) -> int:
 
     peaks = measure_peaks(device, iters=max(3, args.iters // 2),
                           sizes=sizes)
-    print(f"device peaks: {peaks['peak_gflops']:.1f} GFLOP/s  "
+    print(f"device peaks: {peaks['peak_gflops']:.1f} GFLOP/s  (TF32 "
+          f"{peaks['peak_tf32_gflops']:.1f})  "
           f"{peaks['peak_gbps']:.1f} GB/s  (ridge "
           f"{peaks['ridge_intensity_flop_per_byte']:.1f} flop/B)")
     p = make_problem(args.b, args.n, args.d, args.m, device)

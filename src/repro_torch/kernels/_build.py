@@ -19,6 +19,7 @@ import ctypes
 import hashlib
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import time
@@ -27,7 +28,7 @@ import torch
 
 __all__ = [
     "SOURCES", "build_all", "library", "check", "check_tensor",
-    "stream_of", "ptxas_report",
+    "stream_of", "ptxas_report", "ptxas_summary",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -103,17 +104,53 @@ def build_all() -> float:
     return time.perf_counter() - t0
 
 
+_TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
+
+
+def _kernel_name(mangled: str) -> str:
+    """``flash_tc_kernel<bf16,128,32>`` from an Itanium-mangled kernel
+    name (types, ``Li..E`` ints and ``Lb..E`` bools of its template)."""
+    m = re.search(r"(\d+)([a-z_]+kernel)I(.*?)EE?v", mangled)
+    if not m:
+        return mangled
+    args = re.findall(r"L[ib](\d+)E|(13__nv_bfloat16|6__half|f)(?=L|E|$)",
+                      m.group(3))
+    parts = [n or _TYPES[t] for n, t in args]
+    return f"{m.group(2)}<{','.join(parts)}>"
+
+
+def ptxas_summary(name: str) -> list[dict]:
+    """Per kernel function of ``csrc/<name>.cu``'s last build: its
+    registers, spill stores and spill loads (bytes), from ``ptxas -v``."""
+    log = _build_dir() / f"{name}.log"
+    if not log.exists():
+        return []
+    out, fn = [], None
+    for ln in log.read_text(errors="replace").splitlines():
+        m = re.search(r"Function properties for (\S+)", ln)
+        if m:
+            fn = {"function": _kernel_name(m.group(1))}
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      ln)
+        if fn is not None and m:
+            fn["spill_stores"], fn["spill_loads"] = map(int, m.groups())
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if fn is not None and m:
+            fn["registers"] = int(m.group(1))
+            out.append(fn)
+            fn = None
+    return out
+
+
 def ptxas_report() -> str:
-    """The ``ptxas -v`` lines (registers, shared memory, spills) of the
-    last build of each library."""
-    lines = []
-    for s in SOURCES:
-        log = _build_dir() / f"{s}.log"
-        if log.exists():
-            lines += [f"[{s}] {ln.strip()}" for ln in
-                      log.read_text(errors="replace").splitlines()
-                      if "registers" in ln or "spill" in ln]
-    return "\n".join(lines)
+    """One line per kernel function of the last build of each library:
+    registers and spills, from ``ptxas -v``."""
+    return "\n".join(
+        f"ptxas[{s}] {f['function']}: {f['registers']} registers, spill "
+        f"stores {f['spill_stores']} B, spill loads {f['spill_loads']} B"
+        for s in SOURCES for f in ptxas_summary(s))
 
 
 def library(name: str) -> ctypes.CDLL:

@@ -2,11 +2,18 @@
 
 Replaces the TPU kernel ``repro/kernels/distance.py::_dist_kernel`` (line
 26). The kernel is ``csrc/distance.cu``; its header says what bounds it on
-the H100 (operations: D/2 flops per output byte) and what its design does
-about that (64x64 output tiles, K-tiles staged in shared memory as f32, a
-4x4 register tile of f32 FFMAs per thread, the norms summed in the same
-K-loop; no TF32). The plain version is ``kernels/ref.py::pairwise_dist``
-(``plain`` here).
+the H100 and what its two bodies do about that:
+
+  * ``"tf32x3"``: f32 inputs on the tensor cores -- persistent blocks over
+    64 x 128 output tiles, each value split into a tf32 part and an f32
+    rest and three TF32 products summed in f32, the norms in the same
+    K-loop, the output written straight from the accumulator;
+  * ``"cuda_cores"``: bf16 / f16 inputs, widened to f32, every dot one f32
+    FMA chain in k order (the plain version's order, which the half types'
+    card gate needs where a dot cancels to near 0).
+
+``pairwise_dist_cuda.body_launches`` counts the launches of each body. The
+plain version is ``kernels/ref.py::pairwise_dist`` (``plain`` here).
 """
 from __future__ import annotations
 
@@ -18,12 +25,21 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["pairwise_dist_cuda", "plain"]
+__all__ = ["pairwise_dist_cuda", "plain", "grid_of", "TILE"]
 
 plain = _ref.pairwise_dist
 _METRICS = {"l2": 0, "ip": 1}
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_MAX_BQ = 65535 * 64      # the grid's y extent times the tile
+_BODY = {torch.float32: "tf32x3", torch.bfloat16: "cuda_cores",
+         torch.float16: "cuda_cores"}
+TILE = (64, 128)          # tf32x3: queries x rows of x per output tile
+_MAX_TILES = 2 ** 31 - 1
+_MAX_BQ_CUDA_CORES = 65535 * 64   # the grid's y extent times the tile
+
+
+def grid_of(Bq: int, N: int) -> int:
+    """Output tiles of the tf32x3 body (its blocks walk them)."""
+    return -(-Bq // TILE[0]) * -(-N // TILE[1])
 
 
 @functools.cache
@@ -51,8 +67,12 @@ def pairwise_dist_cuda(q, x, *, metric="l2"):
     if Dx != D:
         raise ValueError(f"shapes q{tuple(q.shape)} x{tuple(x.shape)} do "
                          "not agree")
-    if Bq > _MAX_BQ:
-        raise ValueError(f"pairwise_dist: Bq={Bq} above {_MAX_BQ}")
+    if _BODY[q.dtype] == "tf32x3" and grid_of(Bq, N) > _MAX_TILES:
+        raise ValueError(f"pairwise_dist: Bq={Bq} x N={N} needs more than "
+                         f"{_MAX_TILES} tiles")
+    if _BODY[q.dtype] == "cuda_cores" and Bq > _MAX_BQ_CUDA_CORES:
+        raise ValueError(f"pairwise_dist: Bq={Bq} above "
+                         f"{_MAX_BQ_CUDA_CORES}")
     out = torch.empty((Bq, N), dtype=torch.float32, device=dev)
     if Bq == 0 or N == 0:
         return out
@@ -64,7 +84,9 @@ def pairwise_dist_cuda(q, x, *, metric="l2"):
                       _build.stream_of(dev))
     _build.check(rc, "distance", "pairwise_dist")
     pairwise_dist_cuda.launches += 1
+    pairwise_dist_cuda.body_launches[_BODY[q.dtype]] += 1
     return out
 
 
 pairwise_dist_cuda.launches = 0
+pairwise_dist_cuda.body_launches = {"tf32x3": 0, "cuda_cores": 0}

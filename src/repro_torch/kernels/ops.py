@@ -34,7 +34,10 @@ f32, bf16 or f16 rows, as the TPU kernel does.
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero the
 kernel wrappers' launch counters (plain integers on each wrapper, raised
 once per launch and nowhere else); :func:`layout_counts` reads the
-per-layout counts of ``gather_dist``, ``hop`` and ``prune``.
+per-layout counts of ``gather_dist``, ``hop`` and ``prune``, and
+:func:`body_counts` the per-body counts of ``flash_attention``
+(``"wgmma"``, ``"cuda_cores"``) and ``pairwise_dist`` (``"tf32x3"``,
+``"cuda_cores"``).
 """
 from __future__ import annotations
 
@@ -54,7 +57,7 @@ from repro_torch.kernels import ref as _ref
 __all__ = [
     "pairwise_dist", "gather_dist", "select_edges", "prune", "hop",
     "flash_attention", "resolve_impl", "launch_counts",
-    "reset_launch_counts", "layout_counts", "KERNELS",
+    "reset_launch_counts", "layout_counts", "body_counts", "KERNELS",
 ]
 
 # kernel name -> its wrapper (each holds a ``launches`` counter)
@@ -78,11 +81,18 @@ def layout_counts() -> dict[str, int]:
             for lay, c in getattr(fn, "layout_launches", {}).items()}
 
 
+def body_counts() -> dict[str, int]:
+    """Launches per kernel body, as ``"flash_attention[wgmma]"`` -> count."""
+    return {f"{name}[{body}]": c for name, fn in KERNELS.items()
+            for body, c in getattr(fn, "body_launches", {}).items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-        if hasattr(fn, "layout_launches"):
-            fn.layout_launches = dict.fromkeys(fn.layout_launches, 0)
+        for attr in ("layout_launches", "body_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
 
 
 def resolve_impl(op: str, impl: str, on: torch.Tensor,

@@ -52,6 +52,18 @@ def test_roofline_smoke_on_cpu(tmp_path):
         assert r["bottleneck"] in ("compute", "memory")
     assert doc["host"]["device"] == "cpu"
     assert doc["config"] == {"B": 8, "n": 4096, "d": 32, "M": 8, "iters": 3}
+    # the TF32 peak beside the f32 one; pairwise_dist's operations term is
+    # 3 x its flops over it (3xTF32), every other row's its flops over the
+    # f32 peak
+    peaks = doc["peaks"]
+    assert peaks["peak_tf32_gflops"] > 0 and peaks["tf32_k"] == 1024
+    for r in doc["kernels"]:
+        mult, peak = ((3, peaks["peak_tf32_gflops"])
+                      if r["kernel"] == "pairwise_dist"
+                      else (1, peaks["peak_gflops"]))
+        want = max(mult * r["flops"] / (peak * 1e9),
+                   r["bytes"] / (peaks["peak_gbps"] * 1e9)) * 1e6
+        assert r["bound_us"] == pytest.approx(want, rel=1e-9)
 
 
 def test_roofline_counts_equal_repro(repro_bench):

@@ -14,9 +14,12 @@ distances agree within 1e-5 of the magnitude of their terms (``‖q‖² +
 runs at model widths too (d = 1024 and 8192, where only some candidate rows
 fit in shared memory). Flash attention agrees with its plain version over
 the variant grid, with q, k and v in the layout the projections leave
-(``[B, S, H, Dh]`` viewed as ``[B, H, S, Dh]``), within 1e-5 in f32 and, in bf16, one ulp plus that 1e-5
-(both round one f32 result once, summed in other orders), and gives 0 on
-a row that sees no key, as the TPU kernel does. The all-pairs distance
+(``[B, S, H, Dh]`` viewed as ``[B, H, S, Dh]``), within 1e-5 in f32 and,
+in bf16 and f16, one bf16 ulp plus that 1e-5 (both round one f32 result
+once, summed in other orders), on the body its dtype and head dim name
+(16-bit with Dh % 16 == 0: the tensor-core body, over every config's
+head dim, GQA groups up to 48 and query lengths around its tiles), and
+gives 0 on a row that sees no key, as the TPU kernel does. The all-pairs distance
 kernel runs ``repro``'s shape sweep (tests/test_kernels.py) and one ragged
 large shape in f32, bf16 and f16, l2 and ip, within 1e-5 of its terms; the
 prune runs on every stored layout (bf16, f16, int8, PQ) at d = 128 and
@@ -242,7 +245,9 @@ def test_prune_codec(dev, layout, C, d, B):
 
 # repro's sweep (tests/test_kernels.py) and one ragged large shape
 DIST_SHAPES = [(8, 8, 8), (16, 32, 24), (37, 65, 40), (128, 128, 64),
-               (3, 200, 130), (1000, 70001, 131)]
+               (3, 200, 130), (1000, 70001, 131), (1, 300, 64), (50, 1, 128)]
+DIST_BODY = {torch.float32: "tf32x3", torch.bfloat16: "cuda_cores",
+             torch.float16: "cuda_cores"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -257,6 +262,7 @@ def test_pairwise_dist(dev, metric, bq, n, d, dtype):
     ops.reset_launch_counts()
     got = ops.pairwise_dist(q, x, metric=metric)
     assert ops.launch_counts()["pairwise_dist"] == 1
+    assert ops.body_counts()[f"pairwise_dist[{DIST_BODY[dtype]}]"] == 1
     want = ref.pairwise_dist(q, x, metric=metric)
     assert got.dtype == torch.float32 and got.shape == (bq, n)
     qf, xf = q.float(), x.float()
@@ -314,8 +320,15 @@ def _bf16_tol(got, want):
         + 1e-5
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
-                         ids=["f32", "bf16"])
+def _flash_body(dtype, Dh):
+    """The body the dispatch must pick: dtype and head dim alone."""
+    if dtype != torch.float32 and Dh % 16 == 0:
+        return "wgmma"
+    return "cuda_cores"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16], ids=["f32", "bf16", "f16"])
 @pytest.mark.parametrize("case", sorted(FLASH))
 def test_flash_attention(dev, case, dtype):
     B, Hq, Hkv, Sq, Skv, Dh, kw = FLASH[case]
@@ -323,6 +336,8 @@ def test_flash_attention(dev, case, dtype):
     ops.reset_launch_counts()
     got = ops.flash_attention(q, k, v, **kw)
     assert ops.launch_counts()["flash_attention"] == 1
+    body = _flash_body(dtype, Dh)
+    assert ops.body_counts()[f"flash_attention[{body}]"] == 1
     want = ref.attention(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == (B, Hq, Sq, Dh)
     assert got.is_contiguous()
@@ -331,6 +346,46 @@ def test_flash_attention(dev, case, dtype):
         assert float(err.max()) <= 1e-5
     else:
         assert bool((err <= _bf16_tol(got, want)).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("Sq", [1, 31, 32, 33, 64, 100])
+@pytest.mark.parametrize("g", [1, 2, 4, 8, 48])
+@pytest.mark.parametrize("Dh", [64, 96, 128, 192, 256])
+def test_flash_attention_tensor_core_grid(dev, Dh, g, Sq, dtype):
+    """Every config's head dim through the tensor-core body, GQA groups
+    up to granite's 48:1, query lengths around the 32-row packing and the
+    64-row tile; causal over Skv = Sq + 7 keys (q_offset 7), so ragged key
+    tiles are masked, never merely zero."""
+    Hkv = 2 if g < 48 else 1
+    q, k, v = _qkv(dev, 1, g * Hkv, Hkv, Sq, Sq + 7, Dh, dtype,
+                   seed=Dh + g + Sq)
+    ops.reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, q_offset=7)
+    assert ops.body_counts()["flash_attention[wgmma]"] == 1
+    want = ref.attention(q, k, v, q_offset=7)
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= _bf16_tol(got, want)).all())
+
+
+def test_flash_attention_tensor_core_row_seeing_no_key_is_zero(dev):
+    """As below, through the tensor-core body (bf16, Dh 64)."""
+    q, k, v = _qkv(dev, 1, 2, 2, 8, 16, 64, torch.bfloat16, seed=1)
+    ops.reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, window=4, q_offset=40)
+    assert ops.body_counts()["flash_attention[wgmma]"] == 1
+    assert torch.equal(got, torch.zeros_like(got))
+
+
+def test_flash_attention_tensor_core_needs_tma_strides(dev):
+    """A 16-bit input whose position stride is not a multiple of 16
+    bytes goes to no other body: the wrapper raises."""
+    q, k, v = _qkv(dev, 1, 2, 2, 8, 8, 64, torch.bfloat16, seed=3)
+    odd = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16,
+                      device=dev)[..., 2:66]
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_cuda(odd, k, v)
 
 
 def test_flash_attention_row_seeing_no_key_is_zero(dev):

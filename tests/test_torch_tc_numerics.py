@@ -1,0 +1,301 @@
+"""The tensor-core designs' arithmetic and host-side planning, on the CPU.
+
+The two redesigned kernels (``csrc/flash_attention.cu``'s 16-bit body and
+``csrc/distance.cu``) run only on the card. What their designs claim about
+rounding is checked here by emulating it in torch and holding the result
+against ``repro``'s references (``repro.kernels.ref``), with the card
+gates' own tolerances:
+
+  * flash attention: 16-bit Q.K^T products exact in f32, the online softmax
+    over 32-key tiles in f32 (exp2 of log2(e)-scaled logits), P split into
+    P_hi + P_lo in V's type, both products accumulated in f32, the output
+    rounded once -- within ``bf16_tol`` (one bf16 ulp plus 1e-5) of the
+    reference at S >= 256; the same with P rounded once to bf16 is not,
+    which is why the kernel splits P;
+  * pairwise distance: 3xTF32 (``cvt.rna`` to tf32 for the big parts, the
+    hardware's truncation of the low 13 bits for the small ones, the
+    small x small term dropped, f32 sums) within DIST_RTOL = 1e-5 of
+    ``‖q‖² + ‖x‖²``; one TF32 product is not.
+
+Then the wrappers' planning, which is pure Python: which flash body runs,
+the tensor-core tiling (GQA heads packed into a 64-row tile at short S),
+its shared memory and grid, whether strides allow TMA, and the pairwise
+grid. Inputs are made from numpy seeds.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro_torch.kernels import distance as tdist
+from repro_torch.kernels import flash_attention as tflash
+
+LOG2E = 1.4426950408889634
+DIST_RTOL = 1e-5            # chip_smoke.py: relative to ‖q‖² + ‖x‖²
+FLASH_F32_TOL = 1e-5        # chip_smoke.py: the f32 gate
+SMEM_PER_BLOCK = 232_448    # the H100's largest dynamic shared memory
+SMEM_PER_SM = 233_472       # 228 KB, 1 KB of it reserved per block
+
+
+def bf16_tol(got, want):
+    """chip_smoke.py's gate for 16-bit outputs: one bf16 ulp at the larger
+    magnitude of the two, plus FLASH_F32_TOL."""
+    _, e = torch.frexp(torch.maximum(got.float().abs(), want.float().abs()))
+    return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8) \
+        + FLASH_F32_TOL
+
+
+# -- flash attention --------------------------------------------------------
+
+def emulate_flash(q, k, v, dtype, *, split=True, bk=32, causal=True):
+    """The tensor-core body's arithmetic on 16-bit-valued f32 tensors q
+    [B, Hq, S, Dh], k / v [B, Hkv, S, Dh]: scores in f32 (the products of
+    16-bit values are exact), the online softmax over ``bk``-key tiles in
+    log2 units, P split into hi and lo in ``dtype`` (or rounded once),
+    P.V summed in f32, the output rounded once to ``dtype``."""
+    B, Hq, Sq, Dh = q.shape
+    g = Hq // k.shape[1]
+    Skv = k.shape[2]
+    kk = k.repeat_interleave(g, 1)
+    vv = v.repeat_interleave(g, 1)
+    sl2 = (1.0 / Dh ** 0.5) * LOG2E
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    o = torch.zeros((B, Hq, Sq, Dh))
+    qpos = torch.arange(Sq)[:, None]
+    for kt in range(0, Skv, bk):
+        s = (q @ kk[:, :, kt:kt + bk].transpose(-1, -2)) * sl2
+        if causal:
+            kpos = torch.arange(kt, min(kt + bk, Skv))[None, :]
+            s = torch.where(kpos <= qpos, s, -torch.inf)
+        m_new = torch.maximum(m, s.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        hi = p.to(dtype).float()
+        pv = hi @ vv[:, :, kt:kt + bk]
+        if split:
+            pv = pv + (p - hi).to(dtype).float() @ vv[:, :, kt:kt + bk]
+        o = o * corr + pv
+    return (o / l.clamp_min(1e-30)).to(dtype)
+
+
+def _flash_case(S, dtype, seed):
+    """q, k, v with 16-bit values (f32 tensors) and repro's reference
+    attention on them, rounded once to ``dtype`` as the plain version's
+    output is."""
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(dtype).float()
+               for sh in ((1, 4, S, 128), (1, 2, S, 128), (1, 2, S, 128)))
+    want = np.asarray(jref.attention(jnp.asarray(q.numpy()),
+                                     jnp.asarray(k.numpy()),
+                                     jnp.asarray(v.numpy())))
+    return q, k, v, torch.from_numpy(want.copy()).to(dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("S", [256, 512])
+def test_flash_split_p_is_within_the_card_gate(S, dtype):
+    q, k, v, want = _flash_case(S, dtype, seed=S)
+    got = emulate_flash(q, k, v, dtype)
+    assert bool(((got.float() - want.float()).abs()
+                 <= bf16_tol(got, want)).all())
+
+
+@pytest.mark.parametrize("S", [256, 512])
+def test_flash_p_rounded_once_breaks_the_card_gate(S):
+    """The same inputs with P rounded once to bf16 (8 bits of p): a
+    tenth of the outputs fall outside the gate, some by 50x."""
+    q, k, v, want = _flash_case(S, torch.bfloat16, seed=S)
+    got = emulate_flash(q, k, v, torch.bfloat16, split=False)
+    over = (got.float() - want.float()).abs() > bf16_tol(got, want)
+    assert float(over.float().mean()) > 0.01
+
+
+def test_flash_emulation_without_rounding_is_the_reference():
+    """The emulation itself is the reference's function: in f32 with no
+    16-bit rounding it agrees within the f32 gate."""
+    q, k, v, _ = _flash_case(256, torch.bfloat16, seed=3)
+    want = np.asarray(jref.attention(jnp.asarray(q.numpy()),
+                                     jnp.asarray(k.numpy()),
+                                     jnp.asarray(v.numpy())))
+    got = emulate_flash(q, k, v, torch.float32)
+    assert float((got - torch.from_numpy(want.copy())).abs().max()) \
+        <= FLASH_F32_TOL
+
+
+# -- pairwise distance ------------------------------------------------------
+
+def rna_tf32(a):
+    """``cvt.rna.tf32.f32``: the low 13 bits rounded to nearest, ties away
+    from zero (f32 is sign-magnitude, so adding half an ulp to the bits
+    rounds the magnitude)."""
+    return ((a.view(torch.int32) + (1 << 12)) & ~0x1FFF).view(torch.float32)
+
+
+def trunc_tf32(a):
+    """What the tensor core reads of an f32 operand: the low 13 bits
+    cleared."""
+    return (a.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def dot_3xtf32(q, x):
+    """The kernel's product: big = rna(a), small = a - big (exact in f32,
+    read truncated), big.big + big.small + small.big in f32 (each product
+    of two tf32 values is exact in f32)."""
+    qb, xb = rna_tf32(q), rna_tf32(x)
+    qs, xs = trunc_tf32(q - qb), trunc_tf32(x - xb)
+    return qs @ xb.T + qb @ xs.T + qb @ xb.T
+
+
+def dot_1xtf32(q, x):
+    return rna_tf32(q) @ rna_tf32(x).T
+
+
+def _dist_rel_err(bq, n, d, dot):
+    rng = np.random.default_rng(bq * 1000 + n + d)
+    q = rng.standard_normal((bq, d)).astype(np.float32)
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    want = torch.from_numpy(np.array(jref.pairwise_dist(jnp.asarray(q),
+                                                        jnp.asarray(x))))
+    tq, tx = torch.from_numpy(q), torch.from_numpy(x)
+    qq = (tq * tq).sum(1, keepdim=True)
+    xx = (tx * tx).sum(1)[None]
+    got = (qq - 2.0 * dot(tq, tx)) + xx       # the kernel's epilogue order
+    return (got - want).abs() / (qq + xx)
+
+
+DIST_CASES = [(64, 2000, 128), (37, 500, 131), (3, 200, 130),
+              (16, 2048, 1024)]
+
+
+@pytest.mark.parametrize("bq,n,d", DIST_CASES)
+def test_pairwise_3xtf32_is_within_dist_rtol(bq, n, d):
+    assert float(_dist_rel_err(bq, n, d, dot_3xtf32).max()) <= DIST_RTOL
+
+
+@pytest.mark.parametrize("bq,n,d", DIST_CASES)
+def test_pairwise_one_tf32_product_is_not(bq, n, d):
+    assert float(_dist_rel_err(bq, n, d, dot_1xtf32).max()) > DIST_RTOL
+
+
+def test_tf32_split_is_exact():
+    """big + small == a in f32, and big has no low bits: the split loses
+    nothing before the tensor core truncates small."""
+    a = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        10_000).astype(np.float32) * 1e3)
+    big = rna_tf32(a)
+    assert torch.equal(big + (a - big), a)
+    assert not bool((big.view(torch.int32) & 0x1FFF).any())
+    assert float(((a - big).abs() / a.abs()).max()) <= 2.0 ** -11
+
+
+# -- planning ---------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,Dh,body", [
+    (torch.bfloat16, 128, "wgmma"), (torch.float16, 96, "wgmma"),
+    (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 256, "wgmma"),
+    (torch.float32, 128, "cuda_cores"), (torch.bfloat16, 7, "cuda_cores"),
+    (torch.float16, 40, "cuda_cores"), (torch.float32, 7, "cuda_cores"),
+])
+def test_flash_body_by_dtype_and_head_dim(dtype, Dh, body):
+    assert tflash.body_of(dtype, Dh) == body
+    assert body in tflash.BODIES
+
+
+def _rows_of(plan, B, Hq, Hkv, Sq):
+    """Every (b, head, position) each block's 64 rows hold, as the kernel
+    maps them (blockIdx.x = (b * Hkv + kv head) * tiles + tile in group;
+    row r: head r // RQ of the tile's P, position q0 + r % RQ), keeping
+    the rows it writes."""
+    g = Hq // Hkv
+    tpg = -(-g // plan.P)
+    seen = []
+    for bx in range(plan.grid[0]):
+        tg, rest = bx % tpg, bx // tpg
+        kvh, b = rest % Hkv, rest // Hkv
+        h0 = kvh * g + tg * plan.P
+        for by in range(plan.grid[1]):
+            q0 = by * plan.RQ
+            for r in range(min(plan.P * plan.RQ, 64)):
+                hd, pos = r // plan.RQ, q0 + r % plan.RQ
+                if pos < Sq and tg * plan.P + hd < g:
+                    seen.append((b, h0 + hd, pos))
+    return seen
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq", [
+    (256, 16, 8, 32), (1, 16, 8, 4096), (2, 48, 1, 1), (1, 48, 1, 31),
+    (1, 8, 2, 33), (3, 4, 4, 100), (1, 6, 2, 20), (2, 8, 2, 64)])
+def test_flash_plan_covers_every_row_once(B, Hq, Hkv, Sq):
+    plan = tflash.plan_tc(B, Hq, Hkv, Sq, Sq, 128)
+    seen = _rows_of(plan, B, Hq, Hkv, Sq)
+    assert len(seen) == len(set(seen)) == B * Hq * Sq
+    assert plan.P * plan.RQ <= 64
+    # every head of a tile shares its kv head
+    g = Hq // Hkv
+    assert plan.P <= g
+
+
+def test_flash_plan_packs_the_embed_path():
+    """qwen3-0.6b's embed call: g = 2 heads of S = 32 fill one 64-row
+    tile, so each kv head's K/V tile is read once: B * Hkv blocks."""
+    plan = tflash.plan_tc(256, 16, 8, 32, 32, 128)
+    assert (plan.P, plan.RQ, plan.DP, plan.BK) == (2, 32, 128, 32)
+    assert plan.grid == (256 * 8, 1)
+    long = tflash.plan_tc(1, 16, 8, 4096, 4096, 128)
+    assert (long.P, long.RQ) == (1, 64)
+    assert long.grid == (16, 64)
+    granite = tflash.plan_tc(1, 48, 1, 1, 77, 128)
+    assert (granite.P, granite.RQ, granite.grid) == (48, 1, (1, 1))
+
+
+@pytest.mark.parametrize("Dh", [16, 48, 64, 96, 128, 192, 256])
+def test_flash_plan_shared_memory(Dh):
+    """Q's 64 rows and two stages of K and V, in 64-column chunks, plus
+    1 KB of alignment and the barriers: at most 96 KB (Dh 256), and four
+    blocks an SM up to Dh 128."""
+    plan = tflash.plan_tc(1, 4, 2, 100, 100, Dh)
+    assert plan.DP == -(-Dh // 64) * 64 and plan.DP >= Dh
+    nc = plan.DP // 64
+    assert plan.smem_bytes == 1024 + nc * (64 * 128 + 4 * plan.BK * 128) + 64
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    if plan.DP <= 128:
+        assert 4 * (plan.smem_bytes + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("Dh", [7, 8, 40, 264])
+def test_flash_plan_rejects_other_head_dims(Dh):
+    with pytest.raises(ValueError, match="multiple of 16"):
+        tflash.plan_tc(1, 2, 1, 8, 8, Dh)
+
+
+def test_tma_strides():
+    """The projections' views ([B, S, H, Dh] as [B, H, S, Dh]) go in as
+    they are; a length-1 dim's stride never matters; a stride or pointer
+    off 16 bytes does not go in."""
+    q = torch.zeros((2, 5, 4, 64), dtype=torch.bfloat16).transpose(1, 2)
+    assert tflash.tma_strides(q) == (5 * 4 * 64, 64, 4 * 64)
+    one = torch.zeros((1, 1, 3, 64), dtype=torch.bfloat16)
+    assert tflash.tma_strides(one) == (8, 8, 64)
+    odd = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16)[..., :64]
+    assert tflash.tma_strides(odd) is None          # 136-byte rows
+    base = torch.zeros((1, 2, 8, 72), dtype=torch.bfloat16)
+    shifted = base[..., 1:65]
+    if shifted.data_ptr() % 16:
+        assert tflash.tma_strides(shifted) is None  # 2 bytes off
+    assert tflash.tma_strides(base[..., 8:]) is not None
+
+
+def test_pairwise_grid():
+    """One block per 64 x 128 output tile (the C entry then runs as many
+    as the card holds at once, each walking tiles by the grid's stride)."""
+    assert tdist.TILE == (64, 128)
+    assert tdist.grid_of(64, 100_000) == 782
+    assert tdist.grid_of(1000, 1_000_000) == 16 * 7813
+    assert tdist.grid_of(1, 1) == 1
+    assert tdist.grid_of(65, 129) == 4
