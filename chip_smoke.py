@@ -75,7 +75,11 @@ the full-size run, one card). It
      shape whose launch went to another body than its dtype and head dim
      name (16-bit: the tensor-core body; f32: the CUDA-core one), with
      SDPA's time beside it where SDPA computes the same function; the prune kernel at d = 1,024 and C = 144 on one build
-     chunk's own candidates (``prune_check_wide``); and gather_dist and
+     chunk's own candidates (``prune_check_wide``), each prune record
+     with its regime (staged rows, shared memory and warps a CTA);
+     one search level of the lm build under torch.profiler
+     (``profile[build level ...]``: device busy share, the prune's share
+     of device time, the top 8 kernels); and gather_dist and
      the hop on the lm index at the served batch's shapes (B = 64, d =
      1,024), as in step 5;
   12. prints one JSON line of kernel records (each codec layout as e.g.
@@ -611,6 +615,7 @@ def kernel_entry(name, rec, cu, tpu, launches, library_ms=None) -> dict:
           + f", max_abs_err {rec['max_abs_err']:.3g}"
           + (f", rows differing {rec['rows_differ']} (near ties "
              f"{rec['near_ties']})" if "rows_differ" in rec else "")
+          + (f"; {rec['regime']}" if "regime" in rec else "")
           + ("" if rec["ok"] else "  DISAGREES"), flush=True)
     return {"name": name, "route": "cuda",
             "source": f"src/repro_torch/csrc/{cu}",
@@ -621,9 +626,18 @@ def kernel_entry(name, rec, cu, tpu, launches, library_ms=None) -> dict:
             "library_ms": library_ms}
 
 
-def profile_search(torch, search, tag="search fused") -> None:
+def prune_regimes() -> dict:
+    """The prune's launches per regime since the counters were zeroed."""
+    from repro_torch.kernels.prune import prune_cuda
+
+    return dict(prune_cuda.regime_launches)
+
+
+def profile_search(torch, search, tag="search fused", share_of=None) -> None:
     """One call of ``search`` under torch.profiler: device busy share of
-    the wall time and the kernels that took the most device time."""
+    the wall time and the kernels that took the most device time; with
+    ``share_of`` (a kernel name's substring), that kernel's share of the
+    device time too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -648,9 +662,15 @@ def profile_search(torch, search, tag="search fused") -> None:
               "profiler saw no device activity)", flush=True)
         return
     top = sorted(events, key=dev_us, reverse=True)[:8]
+    share = ""
+    if share_of:
+        mine = sum(dev_us(e) for e in events if share_of in e.key)
+        share = (f"; {share_of} {mine / 1e3:.2f} ms, "
+                 f"{100 * mine / busy:.1f}% of device time")
     print(f"profile[{tag}]: wall {wall_us / 1e3:.2f} ms under the "
           f"profiler, device busy {busy / 1e3:.2f} ms "
-          f"({100 * busy / wall_us:.1f}%); top device time: " + "; ".join(
+          f"({100 * busy / wall_us:.1f}%){share}; top device time: "
+          + "; ".join(
               f"{e.key[:60]} {dev_us(e) / 1e3:.2f} ms x{e.count}"
               for e in top), flush=True)
 
@@ -814,11 +834,15 @@ def prune_record(torch, table, cand, du, m, shape) -> dict:
     from repro_torch.bench.common import prune_parity
     from repro_torch.core import storage
     from repro_torch.kernels import ref
-    from repro_torch.kernels.prune import prune_cuda, smem_plan
+    from repro_torch.kernels.prune import prune_cuda, smem_plan, warps_of
 
     B, C = cand.shape
     d = storage.table_dim(table)
+    plan = smem_plan(C, d)
+    regime = plan.regime
+    before = prune_cuda.regime_launches[regime]
     got = prune_cuda(cand, du, table, m=m)
+    counted = prune_cuda.regime_launches[regime] - before == 1
     want = ref.prune(cand, du, table, m=m)
     cvec = storage.decode_rows(table, cand.clamp_min(0).long())
     differ, ties, good = prune_parity(got, want, cand, du, cvec, m)
@@ -829,12 +853,19 @@ def prune_record(torch, table, cand, du, m, shape) -> dict:
     row, once = stored_row_bytes(table)
     bms, by = bound_ms(B * C * 8 + union * row + once + B * m * 4,
                        (dots + live) * 2.0 * d)
-    staged, smem = smem_plan(C, d)
-    return dict(ok=good, max_abs_err=float((got - want).abs().max()),
+    if not counted:
+        print(f"prune [{shape}]: the launch was not counted in the "
+              f"{regime} regime its plan names", flush=True)
+    return dict(ok=good and counted,
+                max_abs_err=float((got - want).abs().max()),
                 ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
-                rows_differ=differ, near_ties=ties, staged_rows=staged,
-                smem_bytes=smem, rows_distinct=union, rows_live=live,
-                dots=dots, shape=shape, kept=got)
+                rows_differ=differ, near_ties=ties,
+                staged_rows=plan.staged, smem_bytes=plan.bytes,
+                warps=warps_of(plan),
+                regime=f"{regime}: one CTA a node, {plan.staged} staged "
+                       f"rows, {plan.bytes} B and {warps_of(plan)} warps",
+                rows_distinct=union, rows_live=live, dots=dots, shape=shape,
+                kept=got)
 
 
 def prune_check_wide(torch, index, efc) -> dict:
@@ -888,8 +919,7 @@ def prune_check_wide(torch, index, efc) -> dict:
         rec.pop("kept")
         rec.update(layer=lay, segment=size)
         print(f"kernel prune [{rec['shape']}, one build chunk at layer "
-              f"{lay} (segments of {size}), {rec['staged_rows']} of {C} "
-              f"rows in {rec['smem_bytes']} B of shared memory; "
+              f"{lay} (segments of {size}); {rec['regime']}; "
               f"{rec['rows_live']} live candidates, {rec['rows_distinct']} "
               f"distinct table rows, {rec['dots']} dots]: "
               f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} ms, bound "
@@ -899,6 +929,30 @@ def prune_check_wide(torch, index, efc) -> dict:
               flush=True)
         out[name] = rec
     return out
+
+
+def profile_build_level(torch, index, efc) -> None:
+    """torch.profiler over one search level of the lm build, as
+    ``core/build.py::_build_search_level`` runs it (the level
+    ``prune_check_wide`` samples: segments of 4,096, chunks of
+    LM_BUILD_CHUNK, the child level read from the built table): the device
+    busy share, the prune kernel's share of device time, and the top 8
+    kernels, the candidate gather and ``_sq_dists`` glue among them."""
+    from repro_torch.core import build
+
+    table, nbrs = index.vectors, index.neighbors
+    n = table.shape[0]
+    logn = index.logn
+    lay = max(logn - 12, 0)
+    cfg = build.BuildConfig(m=index.m, ef_construction=efc,
+                            chunk=LM_BUILD_CHUNK)
+    profile_search(
+        torch, lambda: build._build_search_level(
+            table, nbrs, n, lay, logn, 1 << (logn - lay), cfg,
+            LM_BUILD_CHUNK, "auto"),
+        f"build level {lay}, segments of {1 << (logn - lay)}, "
+        f"{-(-n // LM_BUILD_CHUNK)} chunks of {LM_BUILD_CHUNK}",
+        share_of="prune")
 
 
 def lm_serve(torch, n_items) -> tuple[dict, bool]:
@@ -961,6 +1015,7 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
     counts = ops.launch_counts()
     bodies = {k: v for k, v in ops.body_counts().items()
               if k.startswith("flash_attention")}
+    regimes = prune_regimes()
     st = engine.stats
     entries2 = st["compiles"]
     peak = torch.cuda.max_memory_allocated(dev)
@@ -1039,6 +1094,7 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
         "index_bytes": int(index.nbytes),
         "launches": counts,
         "flash_bodies": bodies,
+        "prune_regimes": regimes,
     })
     out["phase_s"] = round(time.perf_counter() - t_phase, 1)
     never = [k for k in ("flash_attention", "prune", "gather_dist", "hop")
@@ -1309,7 +1365,8 @@ def run(args):
     after_build = ops.launch_counts()
     print(f"build: n={n} layers={index.logn + 1} m=16 efc=64 "
           f"chunk={BUILD_CHUNK}: {build_seconds:.1f} s; launches "
-          f"prune={after_build['prune']} "
+          f"prune={after_build['prune']} (by regime "
+          f"{json.dumps(prune_regimes())}) "
           f"gather_dist={after_build['gather_dist']}; peak device memory "
           f"{torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB",
           flush=True)
@@ -1492,18 +1549,19 @@ def run(args):
         kernels.append(kernel_entry(name, rec, cu, tpu, counts[name]))
         if "rows_differ" in rec:
             kernels[-1].update(rows_differ=rec["rows_differ"],
-                               near_ties=rec["near_ties"])
+                               near_ties=rec["near_ties"],
+                               regime=rec["regime"])
     c128 = records["prune_C128"]
     print(f"kernel prune [{c128['shape']}]: {c128['ms']:.4f} ms, plain "
           f"{c128['plain_ms']:.4f} ms, bound {c128['bound_ms']:.4f} ms "
           f"({c128['bound_by']}), rows differing {c128['rows_differ']} "
-          f"(near ties {c128['near_ties']})"
+          f"(near ties {c128['near_ties']}); {c128['regime']}"
           + ("" if c128["ok"] else "  DISAGREES"), flush=True)
     if not c128["ok"]:
         ok = False
     kernels[-1]["at_C128"] = {k: c128[k] for k in
                               ("ms", "plain_ms", "bound_ms", "max_abs_err",
-                               "rows_differ", "near_ties")}
+                               "rows_differ", "near_ties", "regime")}
 
     # -- the codec path: every stored layout, on the same 1M index ----------
     # driven with every count at 0: the encodes, then each codec's searches
@@ -1585,6 +1643,7 @@ def run(args):
         ok &= rec["ok"]
     wide = prune_check_wide(torch, lm_index, 2 * LM_EF)
     ok &= wide["f32"]["ok"]
+    profile_build_level(torch, lm_index, 2 * LM_EF)
     # gather_dist and hop at the served batch's shapes on the d = 1024
     # index: B = LM_MAX_BATCH queries, the engine's W frontier rows of m
     fr = frontier(torch, lm_index, lm_q[:LM_MAX_BATCH], lm_L[:LM_MAX_BATCH],
@@ -1620,8 +1679,8 @@ def run(args):
                      ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "max_abs_err")}})
     wide_keys = ("ms", "plain_ms", "bound_ms", "bound_by", "max_abs_err",
-                 "rows_differ", "near_ties", "staged_rows", "smem_bytes",
-                 "layer", "rows_distinct", "rows_live", "dots")
+                 "rows_differ", "near_ties", "regime", "staged_rows",
+                 "smem_bytes", "layer", "rows_distinct", "rows_live", "dots")
     for entry in kernels:
         if entry["name"] == "prune":
             entry["at_d1024"] = {k: wide["f32"][k] for k in wide_keys}
@@ -1675,7 +1734,7 @@ def run(args):
         kernels.append(kernel_entry(key, rec, "prune.cu", CODEC_TPU["prune"],
                                     prune_layouts[key]))
         kernels[-1].update(rows_differ=rec["rows_differ"],
-                           near_ties=rec["near_ties"])
+                           near_ties=rec["near_ties"], regime=rec["regime"])
         if not same:
             print(f"kernel {key}: the path's kept ids differ from a second "
                   "launch on the same inputs", flush=True)

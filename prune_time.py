@@ -4,15 +4,27 @@ source tree at the paths' shapes.
 
 ``python3 prune_time.py <src dir> [parts]`` imports ``repro_torch`` from
 ``<src dir>`` (a checkout's ``src``), builds its kernels, and times them
-on the card; ``parts`` is a comma-separated subset of ``prune,flash,
-pairwise,pairwise_exact`` (default: all).
+on the card; ``parts`` is a comma-separated subset of ``prune,
+prune_designs,flash,pairwise,pairwise_exact`` (default: all but
+prune_designs).
 
   * prune: n = 1,000,000 random f32 rows of d = 128, B = 16,384 nodes, C =
     80 candidates drawn from a 4,096-row segment (a search level) and C =
     128 (a brute level's whole segment); and n = 131,072 rows of d = 1,024
-    (qwen3-0.6b's width), B = 4,096 nodes, C = 144 candidates from a
-    4,096-row segment, where only some rows fit in shared memory; m = 16.
-    Reports whether the kept ids equal the plain version's.
+    (qwen3-0.6b's width), B = 4,096 nodes: C = 144 candidates from a
+    4,096-row segment (a search level's chunk) on the f32 table and on
+    its int8 encoding, C = 128 (a brute level) and C = 48 (the reverse
+    pass's width); m = 16. Reports whether the kept ids equal the plain
+    version's, and the tree's plan for the shape (``smem_plan``).
+  * prune_designs (this tree's prune only): the prune's regimes against
+    each other on the same inputs, each plan forced in place of
+    ``smem_plan``'s: C = 80 at d = 128 (block, table); C = 144 at d =
+    1,024 with random rows (table, partial: one CTA staging the rows that
+    fit) and with du scaled by 0.93, so that more rows stay live a sweep,
+    as in the lm build's chunk; and the partial regime where it is the
+    plan, B = 1,024 nodes at C = 48, d = 4,096 and C = 144, d = 8,192,
+    with the plain version's time; each also at 4 and 8 warps a CTA.
+    Reports ms and whether the kept ids equal the plain version's.
   * flash: bf16, causal, Hq 16, Hkv 8, Dh 128, in the projections' layout
     ([B, S, H, Dh] viewed as [B, H, S, Dh]): the embed path's B = 256, S =
     32, and B = 1, S = 4,096. Reports the largest |difference| from the
@@ -40,7 +52,8 @@ import torch  # noqa: E402
 
 from repro_torch.kernels import _build, ref  # noqa: E402
 
-PARTS = ("prune", "flash", "pairwise", "pairwise_exact")
+PARTS = ("prune", "prune_designs", "flash", "pairwise", "pairwise_exact")
+DEFAULT_PARTS = ("prune", "flash", "pairwise", "pairwise_exact")
 
 
 def time_ms(fn, iters=20, warmup=3):
@@ -57,33 +70,102 @@ def time_ms(fn, iters=20, warmup=3):
     return a.elapsed_time(b) / iters
 
 
+# name, n, d, B, C, candidates ("search": drawn from the node's 4,096-row
+# segment; "brute": its whole 128-row segment), stored layout
+PRUNE_SHAPES = (
+    ("C80", 1_000_000, 128, 16384, 80, "search", "f32"),
+    ("C128", 1_000_000, 128, 16384, 128, "brute", "f32"),
+    ("d1024_C144", 131072, 1024, 4096, 144, "search", "f32"),
+    ("d1024_C144_int8", 131072, 1024, 4096, 144, "search", "int8"),
+    ("d1024_C128", 131072, 1024, 4096, 128, "brute", "f32"),
+    ("d1024_C48", 131072, 1024, 4096, 48, "search", "f32"),
+)
+
+
 def prune_part(out, dev, g):
-    from repro_torch.kernels.prune import prune_cuda
+    from repro_torch.core import storage
+    from repro_torch.kernels import prune
 
     m = 16
     tables = {}
-    for name, n, d, B, C in (("C80", 1_000_000, 128, 16384, 80),
-                             ("C128", 1_000_000, 128, 16384, 128),
-                             ("d1024_C144", 131072, 1024, 4096, 144)):
+    for name, n, d, B, C, kind, layout in PRUNE_SHAPES:
         if d not in tables:
             tables[d] = torch.randn((n, d), generator=g, device=dev)
-        table = tables[d]
+        x = tables[d]
+        table = x if layout == "f32" else storage.encode_vectors(
+            x, storage.StorageConfig.int8())
         node = (torch.rand((B,), generator=g, device=dev) * n).long()
-        if C == 128:
+        if kind == "brute":
             cand = ((node >> 7) << 7)[:, None] + torch.arange(
-                128, device=dev)[None, :]
+                C, device=dev)[None, :]
         else:
             cand = ((node >> 12) << 12)[:, None] + (torch.rand(
                 (B, C), generator=g, device=dev) * 4096).long()
         cand = torch.where((cand < n) & (cand != node[:, None]), cand, -1)
         cand = cand.to(torch.int32).contiguous()
-        cvec = table[cand.clamp_min(0).long()]
-        du = torch.where(cand >= 0, ((cvec - table[node][:, None, :]) ** 2)
+        cvec = x[cand.clamp_min(0).long()]
+        du = torch.where(cand >= 0, ((cvec - x[node][:, None, :]) ** 2)
                          .sum(-1), torch.inf).contiguous()
-        same = torch.equal(prune_cuda(cand, du, table, m=m),
+        del cvec
+        same = torch.equal(prune.prune_cuda(cand, du, table, m=m),
                            ref.prune(cand, du, table, m=m))
-        out[f"{name}_ms"] = time_ms(lambda: prune_cuda(cand, du, table, m=m))
+        out[f"{name}_ms"] = time_ms(
+            lambda: prune.prune_cuda(cand, du, table, m=m))
         out[f"{name}_same_as_plain"] = bool(same)
+        out[f"{name}_plan"] = list(prune.smem_plan(C, d))
+
+
+def prune_designs_part(out, dev, g):
+    from repro_torch.kernels import prune
+
+    def forced(C, d, regime):
+        if regime == "block":
+            return prune.Plan(C, prune.smem_bytes(C, d, C), regime)
+        if regime == "table":
+            return prune.Plan(min(C, prune.TABLE_K),
+                              prune.table_bytes(C, d), regime)
+        base = prune.smem_bytes(C, d, 0)
+        staged = (prune.SMEM_LIMIT - base) // ((d + 3) // 4 * 16)
+        return prune.Plan(staged, prune.smem_bytes(C, d, staged), regime)
+
+    plan_of, warps_of = prune.smem_plan, prune.warps_of
+    for name, n, d, B, C, scale, designs in (
+            ("C80", 1_000_000, 128, 16384, 80, 1.0, ("block", "table")),
+            ("d1024_C144", 131072, 1024, 4096, 144, 1.0,
+             ("table", "partial")),
+            ("d1024_C144_du093", 131072, 1024, 4096, 144, 0.93,
+             ("table", "partial")),
+            ("d4096_C48", 131072, 4096, 1024, 48, 1.0, ("partial",)),
+            ("d8192_C144", 65536, 8192, 1024, 144, 1.0, ("partial",))):
+        x = torch.randn((n, d), generator=g, device=dev)
+        node = (torch.rand((B,), generator=g, device=dev) * n).long()
+        cand = ((node >> 12) << 12)[:, None] + (torch.rand(
+            (B, C), generator=g, device=dev) * 4096).long()
+        cand = torch.where((cand < n) & (cand != node[:, None]), cand, -1)
+        cand = cand.to(torch.int32).contiguous()
+        cvec = x[cand.clamp_min(0).long()]
+        du = (torch.where(cand >= 0, ((cvec - x[node][:, None, :]) ** 2)
+                          .sum(-1), torch.inf) * scale).contiguous()
+        del cvec
+        want = ref.prune(cand, du, x, m=16)
+        if d >= 4096:
+            out[f"{name}_plain_ms"] = time_ms(
+                lambda: ref.prune(cand, du, x, m=16), iters=3)
+        for regime in designs:
+            plan = forced(C, d, regime)
+            prune.smem_plan = lambda C_, d_, plan=plan: plan
+            for warps in (None, 4, 8):
+                prune.warps_of = warps_of if warps is None else (
+                    lambda p, w=warps: w)
+                tag = f"{name}_{regime}" + (f"_w{warps}" if warps else "")
+                got = prune.prune_cuda(cand, du, x, m=16)
+                out[f"{tag}_same_as_plain"] = bool(torch.equal(got, want))
+                out[f"{tag}_ms"] = time_ms(
+                    lambda: prune.prune_cuda(cand, du, x, m=16))
+                out[f"{tag}_plan"] = list(plan) + [prune.warps_of(plan)]
+        prune.smem_plan, prune.warps_of = plan_of, warps_of
+        del x, cand, du, want
+        torch.cuda.empty_cache()
 
 
 def flash_part(out, dev, g):
@@ -164,7 +246,7 @@ def pairwise_exact_part(out, dev, g):
 def main():
     if not torch.cuda.is_available():
         sys.exit("prune_time: needs a CUDA card")
-    parts = sys.argv[2].split(",") if len(sys.argv) > 2 else PARTS
+    parts = sys.argv[2].split(",") if len(sys.argv) > 2 else DEFAULT_PARTS
     if set(parts) - set(PARTS):
         sys.exit(f"prune_time: parts are a subset of {','.join(PARTS)}")
     _build.build_all()

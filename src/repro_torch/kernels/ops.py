@@ -37,7 +37,9 @@ once per launch and nowhere else); :func:`layout_counts` reads the
 per-layout counts of ``gather_dist``, ``hop`` and ``prune``, and
 :func:`body_counts` the per-body counts of ``flash_attention``
 (``"wgmma"``, ``"cuda_cores"``) and ``pairwise_dist`` (``"tf32x3"``,
-``"cuda_cores"``).
+``"cuda_cores"``). ``prune_cuda.regime_launches`` counts the prune's
+launches per regime (``prune.REGIMES``: ``"block"``, ``"table"``,
+``"partial"``), and :func:`reset_launch_counts` zeroes it too.
 """
 from __future__ import annotations
 
@@ -90,7 +92,7 @@ def body_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-        for attr in ("layout_launches", "body_launches"):
+        for attr in ("layout_launches", "body_launches", "regime_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
 

@@ -12,8 +12,9 @@ where each lane loops over several 16-byte loads of a row. Integers are bit-iden
 distances agree within 1e-5 of the magnitude of their terms (``‖q‖² +
 ‖x‖²`` of the decoded row; both sum d products in other orders). The prune
 runs at model widths too (d = 1024 and 8192, where only some candidate rows
-fit in shared memory). Flash attention agrees with its plain version over
-the variant grid, with q, k and v in the layout the projections leave
+fit in shared memory), and in each regime of its plan (all rows staged,
+the table of dots and its lazy columns, some rows staged). Flash
+attention agrees with its plain version over the variant grid, with q, k and v in the layout the projections leave
 (``[B, S, H, Dh]`` viewed as ``[B, H, S, Dh]``), within 1e-5 in f32 and,
 in bf16 and f16, one bf16 ulp plus that 1e-5 (both round one f32 result
 once, summed in other orders), on the body its dtype and head dim name
@@ -241,6 +242,112 @@ def test_prune_codec(dev, layout, C, d, B):
         # the plain versions on the decoded f32 rows give the same ids
         assert torch.equal(
             want, ref.prune(cand, du, dec, m=16, alpha=alpha, fill=fill))
+
+
+# the prune's regimes (kernels/prune.py::smem_plan): one CTA with every row
+# at d = 128, the table at qwen3-0.6b's widths (C = 8 below its 16
+# columns), and one CTA that stages only some rows at d = 4096 and 8192
+PRUNE_REGIMES = [(80, 128, "block"), (48, 1024, "table"),
+                 (128, 1024, "table"), (144, 1024, "table"),
+                 (144, 2048, "table"), (8, 4096, "table"),
+                 (48, 4096, "partial"), (128, 8192, "partial")]
+
+
+@pytest.mark.parametrize("C,d,regime,layout", [
+    (C, d, regime, layout) for C, d, regime in PRUNE_REGIMES
+    for layout in (LAYOUTS if d == 1024 and C != 128 else ["f32"])])
+def test_prune_regime(dev, C, d, regime, layout):
+    """Kept ids bit-identical to the plain version's in every regime, with
+    duplicates whose copies sit at both ends of the row and on either side
+    of the staged rows (the later copy the nearer in one row), a row whose
+    staged rows are all -1 and one whose unstaged rows are, a row with
+    fewer live candidates than m (the fill path), alpha 1.0 and 1.2 (a
+    larger alpha suppresses fewer rows) and no fill; each launch counted
+    in the regime its plan names."""
+    from repro_torch.kernels.prune import smem_plan
+
+    plan = smem_plan(C, d)
+    assert plan.regime == regime
+    staged = plan.staged
+    g = torch.Generator().manual_seed(C + d)
+    n, B = 3000, 64 if d > 2048 else 192
+    x = torch.randn((n, d), generator=g).to(dev)
+    table = storage.encode_vectors(x, LAYOUTS[layout])
+    dec = storage.decode_vectors(table)
+    node = torch.randint(0, n, (B,), generator=g).to(dev)
+    cand = torch.randint(-1, n, (B, C), generator=g,
+                         dtype=torch.int32).to(dev)
+    cand[:, C - 1] = cand[:, 1]          # copies at both ends
+    cand[:, min(staged, C - 2)] = cand[:, 2]  # one staged, one not
+    cand[3, :staged] = -1                # every staged row -1
+    cand[4, staged:] = -1                # every unstaged row -1
+    cand[5, 6:] = -1                     # 6 candidates or fewer, m = 16
+    cand = torch.where(cand == node[:, None].int(), -1, cand).contiguous()
+    cvec = dec[cand.clamp_min(0).long()]
+    du = torch.where(cand >= 0,
+                     ((cvec - dec[node][:, None, :]) ** 2).sum(-1),
+                     torch.inf)
+    du[6, C - 1] = du[6, 1] * 0.5        # the later copy is the nearer
+    du = du.contiguous()
+    for alpha, fill in ((1.0, True), (1.2, True), (1.2, False)):
+        ops.reset_launch_counts()
+        got = prune_cuda(cand, du, table, m=16, alpha=alpha, fill=fill)
+        assert prune_cuda.regime_launches[regime] == 1
+        assert sum(prune_cuda.regime_launches.values()) == 1
+        want = ref.prune(cand, du, table, m=16, alpha=alpha, fill=fill)
+        assert torch.equal(got, want)
+        assert bool((got[5, 6:] == -1).all())
+
+
+def _keep_ranks(cand, du, kept):
+    """Each kept id's rank in its row's (du, position) order (every
+    candidate valid and distinct)."""
+    C = cand.shape[1]
+    pos = (cand[:, :, None] == kept[:, None, :]).int().argmax(1)
+    dk = du.gather(1, pos)
+    q = torch.arange(C, device=cand.device)[None, :, None]
+    before = (du[:, :, None] < dk[:, None, :]) | (
+        (du[:, :, None] == dk[:, None, :]) & (q < pos[:, None, :]))
+    return before.sum(1)[kept >= 0]
+
+
+@pytest.mark.parametrize("C,layout", [(48, "f32"), (144, "f32"),
+                                      (144, "bf16"), (144, "int8")])
+def test_prune_table_lazy_column(dev, C, layout):
+    """The table regime's lazy column (a keep beyond a node's 16 nearest
+    candidates): each node's 20 nearest are one row and near-copies of it,
+    so the first keep suppresses the rest of the table's 16, and every
+    later keep (rows in other directions, farther) is ranked 21 or more.
+    Kept ids bit-identical to the plain version's at alpha 1.0 and 1.2."""
+    from repro_torch.kernels.prune import smem_plan
+
+    d, B, dup = 1024, 96, 20
+    assert smem_plan(C, d).regime == "table"
+    g = torch.Generator().manual_seed(C)
+    u = torch.randn((B, 1, d), generator=g)
+    e = torch.randn((B, 1, d), generator=g)
+    e = 10 * e / e.norm(dim=-1, keepdim=True)
+    eps = torch.randn((B, dup - 1, d), generator=g)
+    eps = 0.05 * eps / eps.norm(dim=-1, keepdim=True)
+    f = torch.randn((B, C - dup, d), generator=g)
+    f = 12 * f / f.norm(dim=-1, keepdim=True)
+    x = torch.cat([u, u + e, u + e + eps, u + f], 1)  # [B, 1 + C, d]
+    x = x.reshape(B * (C + 1), d).to(dev)
+    table = storage.encode_vectors(x, LAYOUTS[layout])
+    dec = storage.decode_vectors(table)
+    node = torch.arange(B, device=dev) * (C + 1)
+    order = torch.argsort(torch.rand((B, C), generator=g), 1).to(dev)
+    cand = (node[:, None] + 1 + order).to(torch.int32).contiguous()
+    cvec = dec[cand.long()]
+    du = ((cvec - dec[node][:, None, :]) ** 2).sum(-1).contiguous()
+    for alpha in (1.0, 1.2):
+        ops.reset_launch_counts()
+        got = prune_cuda(cand, du, table, m=16, alpha=alpha)
+        assert prune_cuda.regime_launches["table"] == 1
+        want = ref.prune(cand, du, table, m=16, alpha=alpha)
+        assert torch.equal(got, want)
+        ranks = _keep_ranks(cand, du, want)
+        assert int((ranks >= 16).sum()) == 15 * B  # 15 lazy columns a node
 
 
 # repro's sweep (tests/test_kernels.py) and one ragged large shape

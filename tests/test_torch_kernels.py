@@ -298,32 +298,66 @@ def test_prune_matches_jax_pallas_kernel():
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
-@pytest.mark.parametrize("C,d,staged", [
-    (80, 128, 80), (128, 128, 128),     # the f32 build at d = 128: all rows
-    (144, 1024, 55),                    # qwen3-0.6b's width, C = m + 128
-    (128, 8192, 6), (144, 8192, 6),     # chameleon-34b's width
-    (33, 7, 33),
+@pytest.mark.parametrize("C,d,staged,regime", [
+    (80, 128, 80, "block"),             # the f32 build at d = 128: all rows
+    (128, 128, 128, "block"),           # in one CTA, three CTAs an SM
+    (33, 7, 33, "block"),
+    (48, 1024, 16, "table"),            # qwen3-0.6b's reverse pass, C = 3m
+    (128, 1024, 16, "table"),           # its brute levels
+    (144, 1024, 16, "table"),           # its search levels, C = m + 128
+    (48, 2048, 16, "table"),
+    (128, 2048, 16, "table"),
+    (144, 2048, 16, "table"),
+    (8, 4096, 8, "table"),              # fewer candidates than columns
+    (48, 3584, 15, "partial"),          # gemma2-9b's width: 17 rows do
+    (48, 4096, 13, "partial"),          # not fit in one CTA
+    (144, 4096, 13, "partial"),
+    (128, 8192, 6, "partial"),          # chameleon-34b's width
+    (144, 8192, 6, "partial"),
 ])
-def test_prune_smem_plan_at_model_widths(C, d, staged):
-    """The prune kernel's shared-memory plan takes every (C, d) a build at
-    a model's width produces: rows that do not fit stay in global memory,
-    and the plan stays inside the H100's 227 KB per block."""
-    from repro_torch.kernels.prune import SMEM_LIMIT, smem_plan
+def test_prune_smem_plan_at_model_widths(C, d, staged, regime):
+    """The prune's plan at every (C, d) a build at a model's width
+    produces, one CTA a node: all C rows where three such CTAs fit on an
+    SM, else the table regime where its CTA fits, else all C rows where
+    they fit, else the partial regime, as many rows as fit beside the
+    keep's row with the rest in global memory; inside the H100's 227 KB."""
+    from repro_torch.kernels.prune import (SM_SMEM, SMEM_LIMIT,
+                                           BLOCK_RESERVED, TABLE_K,
+                                           smem_bytes, smem_plan,
+                                           table_bytes)
 
-    got, nbytes = smem_plan(C, d)
-    assert got == staged
-    assert nbytes <= SMEM_LIMIT < 232448
+    plan = smem_plan(C, d)
+    assert (plan.staged, plan.regime) == (staged, regime)
+    assert plan.bytes <= SMEM_LIMIT < 232448
+    block = smem_bytes(C, d, C)
+    three = SM_SMEM // (block + BLOCK_RESERVED) >= 3
+    table_fits = table_bytes(C, d) <= SMEM_LIMIT
+    assert (regime == "block") == (three or (not table_fits
+                                             and block <= SMEM_LIMIT))
+    assert (regime == "table") == (not three and table_fits)
+    if regime == "table":
+        assert plan.bytes == table_bytes(C, d) and staged == min(C, TABLE_K)
+        return
+    assert plan.bytes == smem_bytes(C, d, staged)
     row = (d + 3) // 4 * 16
-    assert nbytes == C * 13 + (staged + (staged < C)) * row
+    assert plan.bytes == (staged + (staged < C)) * row + 17 * C
+    assert (regime == "partial") == (block > SMEM_LIMIT)
+    assert staged <= C and (staged == C) == (regime != "partial")
+    if regime == "partial":  # as many rows as fit, not one more
+        assert smem_bytes(C, d, staged + 1) > SMEM_LIMIT
 
 
-def test_prune_smem_plan_raises_only_where_nothing_fits():
+@pytest.mark.parametrize("C,d", [(20000, 4), (16, 60000), (70000, 4)])
+def test_prune_smem_plan_raises_only_where_nothing_fits(C, d):
+    """Only where not even the per-candidate state and the keep's row fit
+    with no row staged (or C passes the kernel's 16-bit positions) does
+    the plan raise; fewer candidates or a narrower row fit."""
     from repro_torch.kernels.prune import smem_plan
 
-    with pytest.raises(ValueError, match="no row staged"):
-        smem_plan(20000, 4)
-    with pytest.raises(ValueError, match="no row staged"):
-        smem_plan(16, 60000)
+    with pytest.raises(ValueError, match="no row staged|fewer than"):
+        smem_plan(C, d)
+    fits = smem_plan(10000, 4) if d == 4 else smem_plan(16, 50000)
+    assert fits.regime == "partial"
 
 
 # ---------------------------------------------------------------------------
