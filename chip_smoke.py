@@ -108,6 +108,15 @@ PEAK_F32_FLOPS = 67e12
 
 BUILD_CHUNK = 32768       # nodes per build step on the card
 DIST_RTOL = 1e-5          # distances: relative to ‖q‖² + ‖x‖²
+L2_FLUSH_BYTES = 128 << 20  # written before a cold launch: > the 50 MB L2
+SLEEP_CYCLES = 1e8        # a head start for the host: ~50 ms at 1.98 GHz
+# what gather_dist's and the hop's records add to the kernels line: ms is
+# their device time per launch with L2 cold; event_ms the CUDA events
+# around back-to-back wrapper calls, which time the host where it enqueues
+# more slowly than the card runs
+SEARCH_KERNEL_KEYS = ("timed_by", "event_ms", "host_us", "distinct_rows",
+                      "minus1_share", "composed_identical",
+                      "edge_ids_needed", "edge_ids_in_blocks", "shape")
 # the prune's near-tie rule (a keep decision within 1e-5 of du, in under
 # 0.1% of rows) is repro_torch/bench/common.py::prune_parity
 # The search quality gate: recall@10 >= MIN_RECALL. make_workload draws
@@ -184,6 +193,90 @@ def time_ms(torch, fn, iters=20, warmup=3):
 
     return time_calls(fn, torch.device("cuda", 0), iters=iters,
                       warmup=warmup) * 1e3
+
+
+def dev_us(e) -> float:
+    """Self device µs of one torch.profiler key_averages() row."""
+    return getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0.0))
+
+
+def device_ms(torch, fn, kernel, iters=12, cold=True, reset=None,
+              windows=3) -> tuple[float, str]:
+    """(device ms per launch, how it was timed) of the kernel whose symbol
+    contains ``kernel``, over calls ``fn(0) .. fn(iters - 1)``, the first
+    two dropped, so the wrapper's host time does not enter. ``reset(i)``,
+    where given, runs before call ``i`` in every pass, outside what is
+    timed: a call that updates its inputs in place (the hop's visited
+    bitset) then does the same work in every pass. With ``cold``,
+    L2_FLUSH_BYTES are written before each call, so the launch reads its
+    rows from device memory, as a caller that walks a table larger than
+    the L2 finds them.
+
+    "profiler": the mean duration of the launches in torch.profiler's
+    trace (it idles 50 ms at both ends of its window, near which it can
+    miss launches). Late in a long process the profiler now and then
+    returns a window without the launches; up to ``windows`` windows are
+    tried. Only if all of them come back empty, "events": CUDA events
+    around each call, recorded behind a 50 ms sleep kernel so that the
+    host is ahead of the card and no host time falls between a pair, less
+    the mean time of an empty pair recorded in the same queue (the event
+    records' own cost, stated in the returned string)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(L2_FLUSH_BYTES // 4, device="cuda") if cold \
+        else None
+
+    def launches():
+        for i in range(iters):
+            if reset is not None:
+                reset(i)
+            if flush is not None:
+                flush.fill_(float(i))
+            yield i
+
+    for _ in range(windows):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            time.sleep(0.05)
+            for i in launches():
+                fn(i)
+            torch.cuda.synchronize()
+            time.sleep(0.05)
+        runs = sorted((e for e in prof.events()
+                       if kernel in e.name
+                       and str(e.device_type).endswith("CUDA")),
+                      key=lambda e: e.time_range.start)[2:]
+        if runs:
+            return (sum(e.time_range.elapsed_us() for e in runs)
+                    / len(runs) / 1e3, "profiler")
+    ev = lambda: torch.cuda.Event(enable_timing=True)  # noqa: E731
+    pairs = [(ev(), ev()) for _ in range(iters)]
+    empty = [(ev(), ev()) for _ in range(iters)]
+    torch.cuda._sleep(int(SLEEP_CYCLES))
+    for i in launches():
+        empty[i][0].record()
+        empty[i][1].record()
+        pairs[i][0].record()
+        fn(i)
+        pairs[i][1].record()
+    torch.cuda.synchronize()
+    pair = sum(a.elapsed_time(b) for a, b in empty[2:]) / (iters - 2)
+    ms = sum(a.elapsed_time(b) for a, b in pairs[2:]) / (iters - 2)
+    return ms - pair, f"events, less {pair * 1e3:.2f} us a pair"
+
+
+def host_us(torch, fn, iters=50) -> float:
+    """The host µs of one call of ``fn(i)``: the host clock around each
+    call, with no synchronisation inside the loop (the card runs behind)."""
+    torch.cuda.synchronize()
+    spent = 0.0
+    for i in range(iters):
+        t0 = time.perf_counter()
+        fn(i)
+        spent += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return spent / iters * 1e6
 
 
 def bound_ms(nbytes: float, flops: float,
@@ -491,11 +584,17 @@ def table_kernels(torch, name, table, nbrs, q, ids, hop_args,
                   hop_need) -> dict:
     """gather_dist and hop on one stored vector table against their plain
     versions on the card at the main path's shapes: distances within
-    DIST_RTOL of their terms, the hop's integers identical; ms, plain ms
-    and the bound at the stored row width (the int8 scale per row, the PQ
-    codebook once). Returns {"gather_dist": record, "hop": record}."""
+    DIST_RTOL of their terms, the hop's integers identical, and the fused
+    hop's four outputs identical to the composed hop's (edge_select ->
+    bitset -> gather_dist), distances too. Times: each kernel's device ms
+    per launch with L2 cold (``device_ms``), the wrapper's host µs per
+    call (``host_us``), and by CUDA events around back-to-back wrapper
+    calls (``event_ms``), plain ms; the bound at
+    the stored row width counts each distinct row once (the int8 scale per
+    row, the PQ codebook once). Returns {"gather_dist": record, "hop":
+    record}."""
     from repro_torch.core import storage
-    from repro_torch.kernels import ref
+    from repro_torch.kernels import ops, ref
     from repro_torch.kernels.gather_distance import gather_dist_cuda
     from repro_torch.kernels.hop import hop_cuda
 
@@ -510,45 +609,77 @@ def table_kernels(torch, name, table, nbrs, q, ids, hop_args,
     row, once = stored_row_bytes(table)
     records = {}
 
-    got = gather_dist_cuda(q, table, ids)
+    def gather(i):
+        return gather_dist_cuda(q, table, ids)
+
+    got = gather(0)
     want = ref.gather_dist(q, table, ids)
     xx = torch.where(ids >= 0, xx_all[ids.clamp_min(0).long()], 0.0)
     err, good = dist_err(torch, got, want, qq, xx)
-    kms = time_ms(torch, lambda i: gather_dist_cuda(q, table, ids))
+    dms, how = device_ms(torch, gather, "gather_dist_kernel")
+    hus = host_us(torch, gather)
+    kms = time_ms(torch, gather)
     pms = time_ms(torch, lambda i: ref.gather_dist(q, table, ids))
     nv = int((ids >= 0).sum())
-    bms, by = bound_ms(ids.numel() * 8 + B * d * 4 + nv * row + once,
+    nd = int(torch.unique(ids[ids >= 0]).numel())
+    bms, by = bound_ms(ids.numel() * 8 + B * d * 4 + nd * row + once,
                        nv * 4 * d)
     records["gather_dist"] = dict(
-        ok=good, max_abs_err=err, ms=kms, plain_ms=pms, bound_ms=bms,
-        bound_by=by, shape=f"B={B} M={ids.shape[1]} d={d}{tag}")
+        ok=good, max_abs_err=err, ms=dms, timed_by=how, event_ms=kms,
+        host_us=hus, plain_ms=pms, bound_ms=bms, bound_by=by,
+        distinct_rows=nd,
+        minus1_share=1 - nv / ids.numel(),
+        shape=f"B={B} M={ids.shape[1]} d={d}{tag}")
 
-    iters = 20
-    vis_k = [vis0.clone() for _ in range(iters + 3)]
+    vis_k = [vis0.clone() for _ in range(12)]
     vis_p = [vis0.clone() for _ in range(5 + 3)]
     gk = hop_cuda(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
                   logn=logn, m_out=m_out)
     gp = ref.hop(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
                  logn=logn, m_out=m_out)
+    gc = ops.hop(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
+                 logn=logn, m_out=m_out, impl="composed")
     int_ok = all(torch.equal(a, b) for a, b in
                  ((gk[0], gp[0]), (gk[2], gp[2]), (gk[3], gp[3])))
+    composed_same = all(torch.equal(a, b) for a, b in zip(gk, gc))
+    if not composed_same:
+        print(f"hop[{name}]: the fused hop's outputs differ from the "
+              "composed hop's", flush=True)
     xx = torch.where(gp[2], xx_all[gp[0].clamp_min(0).long()], 0.0)
     err, good = dist_err(torch, gk[1], gp[1], qq, xx)
-    kms = time_ms(torch, lambda i: hop_cuda(
-        q, table, nbrs, u, Lw, Rw, vis_k[i], exp_ok, logn=logn,
-        m_out=m_out), iters=iters)
+
+    def hop(i):
+        return hop_cuda(q, table, nbrs, u, Lw, Rw, vis_k[i], exp_ok,
+                        logn=logn, m_out=m_out)
+
+    # every timed call starts from the same visited rows: a call that found
+    # its candidates already visited would load no rows
+    dms, how = device_ms(torch, hop, "hop_kernel",
+                         reset=lambda i: vis_k[i].copy_(vis0))
+    vis_h = vis0.clone()
+    hus = host_us(torch, lambda i: hop_cuda(
+        q, table, nbrs, u, Lw, Rw, vis_h, exp_ok, logn=logn, m_out=m_out))
+    del vis_h
+    vis_k = [vis0.clone() for _ in range(20 + 3)]
+    kms = time_ms(torch, hop)
+    del vis_k
     pms = time_ms(torch, lambda i: ref.hop(
         q, table, nbrs, u, Lw, Rw, vis_p[i], exp_ok, logn=logn,
         m_out=m_out), iters=5)
     n_new = int(gp[2].sum())
+    nd = int(torch.unique(gp[0][gp[2]]).numel())
     pre_valid = (gp[0] >= 0) & exp_ok.repeat_interleave(m_out, dim=1)
     need = hop_need(nbrs, gp[0])
     nbytes = (B * d * 4 + B * W * 13 + need * 4 + int(pre_valid.sum()) * 4
-              + n_new * 4 + n_new * row + once + B * W * m_out * 9)
+              + n_new * 4 + nd * row + once + B * W * m_out * 9)
     bms, by = bound_ms(nbytes, n_new * 4 * d)
+    K = nbrs.shape[1] * nbrs.shape[2]
     records["hop"] = dict(
-        ok=int_ok and good, max_abs_err=err, ms=kms, plain_ms=pms,
-        bound_ms=bms, bound_by=by,
+        ok=int_ok and good and composed_same, max_abs_err=err, ms=dms,
+        timed_by=how, event_ms=kms, host_us=hus, plain_ms=pms,
+        bound_ms=bms, bound_by=by, composed_identical=composed_same,
+        distinct_rows=nd,
+        edge_ids_needed=need, edge_ids_in_blocks=int((u >= 0).sum()) * K,
         shape=f"B={B} W={W} m_out={m_out} n={storage.table_n(table)} "
               f"d={d}{tag}")
     return records
@@ -608,7 +739,12 @@ def kernel_entry(name, rec, cu, tpu, launches, library_ms=None) -> dict:
     ``library_ms`` is the time of one PyTorch call computing the same
     function, where there is one (for pairwise_dist, cuBLAS SGEMM of the
     product alone: PAIRWISE_LIBRARY); else null."""
-    print(f"kernel {name} [{rec['shape']}]: {rec['ms']:.4f} ms, plain "
+    timing = f"{rec['ms']:.4f} ms"
+    if "event_ms" in rec:
+        timing = (f"device {rec['ms']:.4f} ms (L2 cold, by "
+                  f"{rec['timed_by']}), by events around back-to-back calls "
+                  f"{rec['event_ms']:.4f} ms, host {rec['host_us']:.1f} us")
+    print(f"kernel {name} [{rec['shape']}]: {timing}, plain "
           f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})"
           + ("" if library_ms is None else f", library {library_ms:.4f} ms")
@@ -617,13 +753,15 @@ def kernel_entry(name, rec, cu, tpu, launches, library_ms=None) -> dict:
              f"{rec['near_ties']})" if "rows_differ" in rec else "")
           + (f"; {rec['regime']}" if "regime" in rec else "")
           + ("" if rec["ok"] else "  DISAGREES"), flush=True)
-    return {"name": name, "route": "cuda",
-            "source": f"src/repro_torch/csrc/{cu}",
-            "replaces": f"src/repro/kernels/{tpu}",
-            "launches": launches, "max_abs_err": rec["max_abs_err"],
-            "ms": rec["ms"], "plain_ms": rec["plain_ms"],
-            "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
-            "library_ms": library_ms}
+    entry = {"name": name, "route": "cuda",
+             "source": f"src/repro_torch/csrc/{cu}",
+             "replaces": f"src/repro/kernels/{tpu}",
+             "launches": launches, "max_abs_err": rec["max_abs_err"],
+             "ms": rec["ms"], "plain_ms": rec["plain_ms"],
+             "bound_ms": rec["bound_ms"], "bound_by": rec["bound_by"],
+             "library_ms": library_ms}
+    entry.update({k: rec[k] for k in SEARCH_KERNEL_KEYS if k in rec})
+    return entry
 
 
 def prune_regimes() -> dict:
@@ -634,23 +772,22 @@ def prune_regimes() -> dict:
 
 
 def profile_search(torch, search, tag="search fused", share_of=None) -> None:
-    """One call of ``search`` under torch.profiler: device busy share of
-    the wall time and the kernels that took the most device time; with
-    ``share_of`` (a kernel name's substring), that kernel's share of the
+    """One call of ``search`` under torch.profiler (the card's activity
+    only): device busy share of the wall time and the kernels that took
+    the most device time; with ``share_of`` (a kernel name's substring, or
+    a tuple of them), each kernel's device time, launches and share of the
     device time too."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  acc_events=True) as prof:
+        time.sleep(0.05)  # the profiler can miss launches near its start
         t0 = time.perf_counter()
         search()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0.0))
+        time.sleep(0.05)  # and near its end
 
     # device-side rows only (kernels, copies): an operator's row repeats
     # the device time of the kernels it launched
@@ -663,10 +800,12 @@ def profile_search(torch, search, tag="search fused", share_of=None) -> None:
         return
     top = sorted(events, key=dev_us, reverse=True)[:8]
     share = ""
-    if share_of:
-        mine = sum(dev_us(e) for e in events if share_of in e.key)
-        share = (f"; {share_of} {mine / 1e3:.2f} ms, "
-                 f"{100 * mine / busy:.1f}% of device time")
+    for name in (share_of,) if isinstance(share_of, str) else share_of or ():
+        mine = [e for e in events if name in e.key]
+        spent = sum(dev_us(e) for e in mine)
+        share += (f"; {name} {spent / 1e3:.2f} ms over "
+                  f"{sum(e.count for e in mine)} launches, "
+                  f"{100 * spent / busy:.1f}% of device time")
     print(f"profile[{tag}]: wall {wall_us / 1e3:.2f} ms under the "
           f"profiler, device busy {busy / 1e3:.2f} ms "
           f"({100 * busy / wall_us:.1f}%){share}; top device time: "
@@ -891,18 +1030,13 @@ def prune_check_wide(torch, index, efc) -> dict:
     C = m + efc
     lay = max(logn - 12, 0)
     size = 1 << (logn - lay)
-    half = size // 2
     s = (n // 2 // LM_BUILD_CHUNK) * LM_BUILD_CHUNK
     e = min(n, s + LM_BUILD_CHUNK)
     Bp = e - s
     u = torch.arange(s, e, dtype=torch.int32, device=dev)
-    lo = (u >> (logn - lay)) << (logn - lay)
-    mid = lo + half - 1
-    in_left = u <= mid
     res = search_fixed_layer(
-        table, nbrs, table[s:e], torch.where(in_left, mid + 1, lo),
-        torch.where(in_left, lo + size - 1, mid), layer=lay + 1, k=efc,
-        config=SearchConfig(ef=efc))
+        table, nbrs, table[s:e], *sibling_bounds(torch, index, lay, s, e),
+        layer=lay + 1, k=efc, config=SearchConfig(ef=efc))
     cand = torch.cat([nbrs[s:e, lay + 1, :], res.ids], dim=1)
     valid = (cand >= 0) & (cand != u[:, None]) & (cand < n)
     cand = torch.where(valid, cand, -1).to(torch.int32).contiguous()
@@ -931,28 +1065,151 @@ def prune_check_wide(torch, index, efc) -> dict:
     return out
 
 
-def profile_build_level(torch, index, efc) -> None:
-    """torch.profiler over one search level of the lm build, as
-    ``core/build.py::_build_search_level`` runs it (the level
-    ``prune_check_wide`` samples: segments of 4,096, chunks of
-    LM_BUILD_CHUNK, the child level read from the built table): the device
-    busy share, the prune kernel's share of device time, and the top 8
-    kernels, the candidate gather and ``_sq_dists`` glue among them."""
+def profile_build_level(torch, index, efc, chunk, lay) -> None:
+    """torch.profiler over one search level of a build, as
+    ``core/build.py::_build_search_level`` runs it (the child level read
+    from the built table, which the later levels never change): the device
+    busy share, the prune's and gather_dist's device time, launches and
+    share of it, and the top 8 kernels, the candidate gather and
+    ``_sq_dists`` glue among them."""
     from repro_torch.core import build
 
     table, nbrs = index.vectors, index.neighbors
     n = table.shape[0]
     logn = index.logn
-    lay = max(logn - 12, 0)
-    cfg = build.BuildConfig(m=index.m, ef_construction=efc,
-                            chunk=LM_BUILD_CHUNK)
+    cfg = build.BuildConfig(m=index.m, ef_construction=efc, chunk=chunk)
     profile_search(
         torch, lambda: build._build_search_level(
-            table, nbrs, n, lay, logn, 1 << (logn - lay), cfg,
-            LM_BUILD_CHUNK, "auto"),
-        f"build level {lay}, segments of {1 << (logn - lay)}, "
-        f"{-(-n // LM_BUILD_CHUNK)} chunks of {LM_BUILD_CHUNK}",
-        share_of="prune")
+            table, nbrs, n, lay, logn, 1 << (logn - lay), cfg, chunk,
+            "auto"),
+        f"build level {lay}, n={n} d={table.shape[1]}, segments of "
+        f"{1 << (logn - lay)}, {-(-n // chunk)} chunks of {chunk}",
+        share_of=("prune", "gather_dist"))
+
+
+def sibling_bounds(torch, index, lay, s, e):
+    """Nodes [s, e) of layer ``lay`` and the sibling half of each one's
+    segment, as ``core/build.py::_build_search_level`` forms them."""
+    logn = index.logn
+    size = 1 << (logn - lay)
+    u = torch.arange(s, e, dtype=torch.int32, device=index.device)
+    lo = (u >> (logn - lay)) << (logn - lay)
+    mid = lo + size // 2 - 1
+    in_left = u <= mid
+    return (torch.where(in_left, mid + 1, lo),
+            torch.where(in_left, lo + size - 1, mid))
+
+
+def gather_at_build(torch, index, efc, chunk, lay) -> dict:
+    """gather_dist as the build's sibling search launches it: one chunk of
+    layer ``lay`` (the middle chunk of nodes, their queries against the
+    sibling half of their segment on the child layer), run once under
+    torch.profiler for its launches' mean device time, and once with
+    ``ops.gather_dist`` wrapped to record every call. The entries' call
+    (M = 3) and the hop step in the middle of the search are timed again
+    alone by device time, with L2 cold and warm, beside their bound: the
+    ids, queries and outputs, and each distinct valid row once, and held
+    against the plain version on their arguments. Returns {"entries":
+    record, "step": record, "ok": both agree, ...}."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch import SearchConfig
+    from repro_torch.core.search import search_fixed_layer
+    from repro_torch.kernels import ops
+
+    table, nbrs = index.vectors, index.neighbors
+    n, d = table.shape
+    s = (n // 2 // chunk) * chunk
+    e = min(n, s + chunk)
+    sib_lo, sib_hi = sibling_bounds(torch, index, lay, s, e)
+
+    def search():
+        return search_fixed_layer(table, nbrs, table[s:e], sib_lo, sib_hi,
+                                  layer=lay + 1, k=efc,
+                                  config=SearchConfig(ef=efc))
+
+    search()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.05)
+        search()
+        torch.cuda.synchronize()
+        time.sleep(0.05)
+    rows = [r for r in prof.key_averages() if "gather_dist" in r.key
+            and str(r.device_type).endswith("CUDA")]
+    launches = sum(r.count for r in rows)
+    in_search = sum(dev_us(r) for r in rows) / max(launches, 1) / 1e3
+
+    calls = []
+    real = ops.gather_dist
+
+    def spy(q, tbl, ids, **kw):
+        calls.append((q, ids.clone()))
+        return real(q, tbl, ids, **kw)
+
+    ops.gather_dist = spy
+    try:
+        search()
+    finally:
+        ops.gather_dist = real
+    valid = torch.stack([(ids >= 0).sum() for _, ids in calls]).cpu()
+    slots = torch.tensor([ids.numel() for _, ids in calls])
+    share = 1 - valid.double() / slots
+    quart = [share[min(len(calls) - 1, k * len(calls) // 4)].item()
+             for k in range(5)]
+    out = {"layer": lay, "segment": 1 << (index.logn - lay),
+           "nodes": [s, e], "launches": len(calls),
+           "device_ms_in_search": in_search,
+           "profiled_launches": launches,
+           "minus1_share_all_calls": 1 - float(valid.sum() / slots.sum()),
+           "minus1_share_at_quarters": quart}
+    for name, k in (("entries", 0), ("step", len(calls) // 2)):
+        q, ids = calls[k]
+        out[name] = gather_call_record(torch, table, q, ids)
+        out[name]["call"] = k
+    del calls
+    out["ok"] = out["entries"]["ok"] and out["step"]["ok"]
+    print(f"gather_dist at build[layer {lay}, n={n} d={d}, chunk {s}:{e}]: "
+          + json.dumps(out), flush=True)
+    return out
+
+
+def gather_call_record(torch, table, q, ids) -> dict:
+    """One gather_dist call (f32 table, ids int32[B, M]) held against its
+    plain version on the same arguments (``ok``: +inf masks equal, the
+    distances within DIST_RTOL of ``‖q‖² + ‖x‖²``) and timed alone: device
+    ms per launch with L2 cold and warm, the wrapper's host µs per call,
+    and the bound: the ids, queries and outputs, and each distinct valid
+    row once."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.gather_distance import gather_dist_cuda
+
+    B, M = ids.shape
+    d = q.shape[1]
+    valid = ids >= 0
+    nv = int(valid.sum())
+    nd = int(torch.unique(ids[valid]).numel())
+    bms, by = bound_ms(2 * B * M * 4 + B * d * 4
+                       + nd * table.shape[1] * table.element_size(),
+                       nv * 4 * d)
+
+    def call(i):
+        return gather_dist_cuda(q, table, ids)
+
+    rows = table[ids.clamp_min(0).long()]
+    xx = torch.where(valid, (rows * rows).sum(-1), 0.0)
+    del rows
+    err, good = dist_err(torch, call(0), ref.gather_dist(q, table, ids),
+                         (q * q).sum(-1, keepdim=True), xx)
+    del xx
+    rec = {"shape": f"B={B} M={M} d={d}", "ok": good, "max_abs_err": err,
+           "minus1_share": 1 - nv / (B * M),
+           "distinct_rows": nd, "bound_ms": bms, "bound_by": by}
+    for tag, cold in (("cold", True), ("warm", False)):
+        rec[f"ms_{tag}"], rec[f"timed_by_{tag}"] = device_ms(
+            torch, call, "gather_dist_kernel", cold=cold)
+    rec["host_us"] = host_us(torch, call)
+    return rec
 
 
 def lm_serve(torch, n_items) -> tuple[dict, bool]:
@@ -1317,6 +1574,7 @@ def run(args):
     from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig, recall
     from repro_torch.bench.common import card_line
     from repro_torch.core import storage
+    from repro_torch.core.search import range_entry_ids
     from repro_torch.data import make_workload, vector_dataset
     from repro_torch.kernels import _build, ops, ref
     from repro_torch.kernels.edge_select import select_edges_cuda
@@ -1506,6 +1764,30 @@ def run(args):
     ids, hop_args, hop_need = fr["ids"], fr["hop_args"], fr["hop_need"]
     records.update(table_kernels(torch, "f32", table, nbrs, q, ids,
                                  hop_args, hop_need))
+    # gather_dist where the build launches it: one chunk of the lowest
+    # search level (rows from device memory) and of the highest (rows in
+    # L2), and at the search's entries (M = 3); then one whole low level
+    # of the build under the profiler
+    t_phase = time.perf_counter()
+    high = logn - BuildConfig().brute_threshold.bit_length()
+    at_build = {f"1M layer {lay}": gather_at_build(torch, index, 64,
+                                                   BUILD_CHUNK, lay)
+                for lay in (0, high)}
+    Lt = torch.as_tensor(L, device=dev, dtype=torch.int32)
+    Rt = torch.as_tensor(R, device=dev, dtype=torch.int32)
+    ent = range_entry_ids(Lt, Rt.clamp_max(n - 1), n)
+    ent = torch.where((ent >= Lt[:, None]) & (ent <= Rt[:, None]), ent, -1)
+    at_build["1M search entries"] = gather_call_record(torch, table, q, ent)
+    print("gather_dist at the search's entries: "
+          + json.dumps(at_build["1M search entries"]), flush=True)
+    for key, rec in at_build.items():
+        if not rec["ok"]:
+            print(f"gather_dist at build[{key}]: differs from the plain "
+                  "version", flush=True)
+        ok &= rec["ok"]
+    profile_build_level(torch, index, 64, BUILD_CHUNK, 0)
+    print(f"phase[gather_dist at build + profile of build level 0]: "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
 
     # prune at the build's two candidate widths
     prune_inputs = {}
@@ -1643,7 +1925,16 @@ def run(args):
         ok &= rec["ok"]
     wide = prune_check_wide(torch, lm_index, 2 * LM_EF)
     ok &= wide["f32"]["ok"]
-    profile_build_level(torch, lm_index, 2 * LM_EF)
+    profile_build_level(torch, lm_index, 2 * LM_EF, LM_BUILD_CHUNK,
+                        max(lm_index.logn - 12, 0))
+    lm_high = lm_index.logn - BuildConfig().brute_threshold.bit_length()
+    for lay in (0, lm_high):
+        rec = at_build[f"lm layer {lay}"] = gather_at_build(
+            torch, lm_index, 2 * LM_EF, LM_BUILD_CHUNK, lay)
+        if not rec["ok"]:
+            print(f"gather_dist at build[lm layer {lay}]: differs from the "
+                  "plain version", flush=True)
+        ok &= rec["ok"]
     # gather_dist and hop at the served batch's shapes on the d = 1024
     # index: B = LM_MAX_BATCH queries, the engine's W frontier rows of m
     fr = frontier(torch, lm_index, lm_q[:LM_MAX_BATCH], lm_L[:LM_MAX_BATCH],
@@ -1662,6 +1953,10 @@ def run(args):
                              ("launches", "max_abs_err", "ms", "plain_ms",
                               "bound_ms", "bound_by")}
         entry["at_d1024"]["shape"] = rec["shape"]
+        entry["at_d1024"].update({k: rec[k] for k in SEARCH_KERNEL_KEYS
+                                  if k in rec})
+        if kname == "gather_dist":
+            entry["at_build"] = at_build
     path = flash["path"]
     kernels.append({
         "name": "flash_attention", "route": "cuda",

@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
-"""Time the prune, flash-attention and pairwise-distance kernels of one
-source tree at the paths' shapes.
+"""Time the prune, flash-attention, pairwise-distance, gather-distance and
+hop kernels of one source tree at the paths' shapes.
 
 ``python3 prune_time.py <src dir> [parts]`` imports ``repro_torch`` from
 ``<src dir>`` (a checkout's ``src``), builds its kernels, and times them
 on the card; ``parts`` is a comma-separated subset of ``prune,
-prune_designs,flash,pairwise,pairwise_exact`` (default: all but
-prune_designs).
+prune_designs,flash,pairwise,pairwise_exact,gather,hop,search``
+(default: all but prune_designs, gather, hop and search).
 
   * prune: n = 1,000,000 random f32 rows of d = 128, B = 16,384 nodes, C =
     80 candidates drawn from a 4,096-row segment (a search level) and C =
@@ -39,11 +39,32 @@ prune_designs).
     gate's half-type tolerance (one bf16 ulp plus 1e-5) of the exact
     dot, and of each other.
 
+  * gather: gather_dist on seeded synthetic inputs at the shapes the main
+    path launches it (``GATHER_SHAPES``): one step of the build's sibling
+    search at its lowest and highest level, at n = 2^20, d = 128 (B =
+    32,768) and n = 131,072, d = 1,024 (B = 4,096); the entries' M = 3 at
+    B = 32,768 and 1,000; the search's frontier (B = 1,000, M = 64) in
+    every stored layout; the server's batch (B = 64, d = 1,024).
+  * hop: the fused hop at the search's frontier (B = 1,000, W = 4, m_out
+    = 16, n = 2^20, d = 128; every layout) and the server's batch (B =
+    64, n = 131,072, d = 1,024), on a synthetic neighbour table.
+    For both: device ms per launch from torch.profiler with L2 cold
+    (``chip_smoke.py::device_ms``; the build's highest level warm, its
+    rows stay in L2 there), the wrapper's host µs per call, the bound, the
+    largest |difference| from the plain version, and a digest of the
+    outputs: equal digests on two trees, bit-identical outputs.
+  * search (not a kernel): the search QPS of chip_smoke.py's 1M cell
+    (``search_part``), the index built by the first run and loaded from
+    ``build/`` by every run, so that two trees search one graph.
+
 Prints one JSON line: ms per launch by CUDA events over 20 launches (5 at
-the long shapes) after 3 warm-ups, and the checks above. To compare two
-trees, run it once per tree in turns (a, b, b, a) in one call on one card.
+the long shapes) after 3 warm-ups (gather and hop: by device time, as
+above), and the checks above. To compare two trees, run it once per tree
+in turns (a, b, b, a) in one call on one card.
 """
+import hashlib
 import json
+import math
 import sys
 
 sys.path.insert(0, sys.argv[1])
@@ -52,7 +73,10 @@ import torch  # noqa: E402
 
 from repro_torch.kernels import _build, ref  # noqa: E402
 
-PARTS = ("prune", "prune_designs", "flash", "pairwise", "pairwise_exact")
+PARTS = ("prune", "prune_designs", "flash", "pairwise", "pairwise_exact",
+         "gather", "hop", "search")
+LAYOUT_F32 = ("f32",)
+LAYOUTS_ALL = ("f32", "bf16", "f16", "int8", "pq")
 DEFAULT_PARTS = ("prune", "flash", "pairwise", "pairwise_exact")
 
 
@@ -166,6 +190,269 @@ def prune_designs_part(out, dev, g):
         prune.smem_plan, prune.warps_of = plan_of, warps_of
         del x, cand, du, want
         torch.cuda.empty_cache()
+
+
+# gather_dist: name, table rows n, d, queries B, slots M, segment whose
+# sibling half each query's ids come from (0: the whole table), share of
+# -1 slots, layouts, L2 cold. build_*: one step of the build's sibling
+# search at the lowest level (rows from device memory) and the highest
+# (a chunk's rows stay in L2), at the -1 share of its launches (measured
+# on the H100 over one chunk's search: 0.73 and 0.92 at n = 1M, 0.49 and
+# 0.95 at the lm's n); entries_*: the entry points' M = 3; then the
+# search's frontier (every layout) and the server's batch at d = 1,024
+GATHER_SHAPES = (
+    ("build_1M_low", 1 << 20, 128, 32768, 64, 1 << 20, 0.75, LAYOUT_F32,
+     True),
+    ("build_1M_high", 1 << 20, 128, 32768, 64, 256, 0.92, LAYOUT_F32,
+     False),
+    ("build_lm_low", 131072, 1024, 4096, 64, 131072, 0.5, LAYOUT_F32,
+     True),
+    ("build_lm_high", 131072, 1024, 4096, 64, 256, 0.95, LAYOUT_F32,
+     False),
+    ("entries_build", 1 << 20, 128, 32768, 3, 1 << 20, 0.0, LAYOUT_F32,
+     True),
+    ("entries_search", 1 << 20, 128, 1000, 3, 0, 0.0, LAYOUT_F32, True),
+    ("frontier", 1 << 20, 128, 1000, 64, 0, 0.05, LAYOUTS_ALL, True),
+    ("server", 131072, 1024, 64, 64, 0, 0.05, LAYOUT_F32, True),
+)
+# the hop: name, n, d, queries B, layouts (W = 4 frontier rows of m = 16
+# edges a layer, m_out = 16; L2 cold)
+HOP_SHAPES = (
+    ("frontier", 1 << 20, 128, 1000, LAYOUTS_ALL),
+    ("server", 131072, 1024, 64, LAYOUT_F32),
+)
+
+
+def digest(*ts) -> str:
+    """A short hash of the tensors' bytes: equal digests, equal bits."""
+    h = hashlib.sha1()
+    for t in ts:
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def tables_of(x, layouts, g):
+    """The f32 rows ``x`` in each stored layout: bf16 and f16 casts, and
+    int8 codes with scales and PQ codes with a codebook drawn at random
+    (d / 4 subspaces of 4): the kernels read what is stored, whatever
+    encoded it."""
+    from repro_torch.core import storage
+
+    n, d = x.shape
+    dev = x.device
+    out = {}
+    for lay in layouts:
+        if lay == "f32":
+            out[lay] = x
+        elif lay in ("bf16", "f16"):
+            out[lay] = x.to(torch.bfloat16 if lay == "bf16"
+                            else torch.float16)
+        elif lay == "int8":
+            codes = torch.randint(-127, 128, (n, d), generator=g,
+                                  device=dev, dtype=torch.int8)
+            scales = torch.rand((n,), generator=g, device=dev) * 0.05
+            out[lay] = storage.Int8Vectors(codes, scales)
+        else:
+            sub = d // 4
+            codes = torch.randint(0, 256, (n, sub), generator=g, device=dev,
+                                  dtype=torch.uint8)
+            book = torch.randn((sub, 256, 4), generator=g, device=dev)
+            out[lay] = storage.PQVectors(codes, book)
+    return out
+
+
+def table_rows(dev, g, n, d, cache):
+    if (n, d) not in cache:
+        cache.clear()
+        torch.cuda.empty_cache()
+        cache[(n, d)] = torch.randn((n, d), generator=g, device=dev)
+    return cache[(n, d)]
+
+
+def gather_ids(dev, g, n, B, M, seg, minus1):
+    """ids int32[B, M] for the queries of nodes s0 .. s0 + B - 1 (s0 the
+    middle of the table): each from the sibling half of the node's
+    segment of ``seg`` rows (``seg`` 0: the whole table), a share
+    ``minus1`` of them -1."""
+    node = n // 2 + torch.arange(B, device=dev)
+    if seg:
+        half = seg // 2
+        lo = node // seg * seg
+        base = torch.where(node - lo < half, lo + half, lo)
+        span = half
+    else:
+        base, span = torch.zeros_like(node), n
+    r = torch.rand((B, M), generator=g, device=dev, dtype=torch.float64)
+    ids = (base[:, None] + (r * span).long()).clamp_max(n - 1)
+    drop = torch.rand((B, M), generator=g, device=dev) < minus1
+    return torch.where(drop, -1, ids).to(torch.int32).contiguous()
+
+
+def gather_part(out, dev, g):
+    import chip_smoke as smoke
+    from repro_torch.kernels import gather_distance as gd
+    from repro_torch.kernels.gather_distance import gather_dist_cuda
+
+    cache = {}
+    for name, n, d, B, M, seg, minus1, layouts, cold in GATHER_SHAPES:
+        x = table_rows(dev, g, n, d, cache)
+        q = torch.randn((B, d), generator=g, device=dev)
+        ids = gather_ids(dev, g, n, B, M, seg, minus1)
+        for lay, table in tables_of(x, layouts, g).items():
+            tag = f"gather_{name}" + ("" if lay == "f32" else f"_{lay}")
+            got = gather_dist_cuda(q, table, ids)
+            want = ref.gather_dist(q, table, ids)
+            fin = torch.isfinite(want)
+            same_mask = torch.equal(torch.isfinite(got), fin)
+            out[f"{tag}_max_abs_err"] = float(
+                (got - want)[fin].abs().max()) if same_mask else math.inf
+            out[f"{tag}_digest"] = digest(got)
+
+            def call(i):
+                return gather_dist_cuda(q, table, ids)
+
+            out[f"{tag}_ms"], out[f"{tag}_timed_by"] = smoke.device_ms(
+                torch, call, "gather_dist_kernel", cold=cold)
+            out[f"{tag}_host_us"] = smoke.host_us(torch, call)
+            row, once = smoke.stored_row_bytes(table)
+            nd = int(torch.unique(ids[ids >= 0]).numel())
+            out[f"{tag}_bound_ms"], _ = smoke.bound_ms(
+                2 * B * M * 4 + B * d * 4 + nd * row + once,
+                int((ids >= 0).sum()) * 4 * d)
+            if hasattr(gd, "plan"):  # the tree's launch plan, where it has one
+                t = gd.table_args(table, dev)
+                out[f"{tag}_plan"] = gd.plan(B, M, t.layout, d,
+                                             gd.rows_vec(t))._asdict()
+        del q, ids
+
+
+def hop_problem(dev, g, n, d, B):
+    """One beam step's hop inputs, as chip_smoke.py::frontier draws them
+    on a built index, on a synthetic table of n rows: the neighbour table
+    ``bench/common.py::elemental_table`` draws (edges inside their layer's
+    segment, 15% -1), query ranges of 2^-i of the table (i in 0..10), W =
+    4 frontier nodes each inside its query's range, 90% of them
+    expandable, 32 in-range ids already visited."""
+    from repro_torch.core import bitset
+
+    W, m = 4, 16
+    logn = max(int(math.ceil(math.log2(n))), 1)
+    layers = logn + 1
+    shift = (logn - torch.arange(layers, device=dev))[None, :, None]
+    u_ids = torch.arange(n, device=dev)[:, None, None]
+    lo = (u_ids >> shift) << shift
+    base = torch.randint(0, n, (n, layers, m), generator=g, device=dev)
+    nbrs = (lo + base % (2 ** shift)).clamp_max(n - 1)
+    drop = torch.rand((n, layers, m), generator=g, device=dev) < 0.15
+    nbrs = torch.where(drop, -1, nbrs).to(torch.int32).contiguous()
+    del base, drop, lo
+    frac = torch.randint(0, 11, (B,), generator=g, device=dev)
+    span = (n >> frac).clamp_min(1)
+    L = (torch.rand((B,), generator=g, device=dev, dtype=torch.float64)
+         * (n - span + 1)).long()
+    R = L + span - 1
+    pick = lambda k: (L[:, None] + (torch.rand(  # noqa: E731
+        (B, k), generator=g, device=dev, dtype=torch.float64)
+        * span[:, None]).long()).to(torch.int32)
+    u = pick(W).contiguous()
+    exp_ok = torch.rand((B, W), generator=g, device=dev) < 0.9
+    vis = bitset.make(B, n, device=dev)
+    seen = pick(32)
+    bitset.test_and_set(vis, seen, torch.ones_like(seen, dtype=torch.bool))
+    q = torch.randn((B, d), generator=g, device=dev)
+    Lw = L.to(torch.int32).repeat_interleave(W).contiguous()
+    Rw = R.to(torch.int32).repeat_interleave(W).contiguous()
+    return q, nbrs, u, Lw, Rw, vis, exp_ok, logn, m
+
+
+def hop_part(out, dev, g):
+    import chip_smoke as smoke
+    from repro_torch.kernels.hop import hop_cuda
+
+    cache = {}
+    for name, n, d, B, layouts in HOP_SHAPES:
+        x = table_rows(dev, g, n, d, cache)
+        q, nbrs, u, Lw, Rw, vis0, exp_ok, logn, m_out = hop_problem(
+            dev, g, n, d, B)
+        for lay, table in tables_of(x, layouts, g).items():
+            tag = f"hop_{name}" + ("" if lay == "f32" else f"_{lay}")
+            got = hop_cuda(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
+                           logn=logn, m_out=m_out)
+            want = ref.hop(q, table, nbrs, u, Lw, Rw, vis0.clone(), exp_ok,
+                           logn=logn, m_out=m_out)
+            out[f"{tag}_ints_same_as_plain"] = all(
+                torch.equal(got[i], want[i]) for i in (0, 2, 3))
+            fin = torch.isfinite(want[1])
+            out[f"{tag}_max_abs_err"] = float(
+                (got[1] - want[1])[fin].abs().max()) if bool(fin.any()) \
+                else 0.0
+            out[f"{tag}_digest"] = digest(*got)
+            out[f"{tag}_new"] = int(want[2].sum())
+            vis = [vis0.clone() for _ in range(12)]
+
+            def call(i):
+                return hop_cuda(q, table, nbrs, u, Lw, Rw, vis[i], exp_ok,
+                                logn=logn, m_out=m_out)
+
+            out[f"{tag}_ms"], out[f"{tag}_timed_by"] = smoke.device_ms(
+                torch, call, "hop_kernel",
+                reset=lambda i: vis[i].copy_(vis0))
+            vis = [vis0.clone()] * 50
+            out[f"{tag}_host_us"] = smoke.host_us(torch, call)
+            del vis
+        del q, nbrs, u, Lw, Rw, vis0, exp_ok
+
+
+SEARCH_REPEATS = 7
+SEARCH_INDEX = "search_index_1M.pt"  # under build/ beside this script
+
+
+def search_part(out, dev, g):
+    """The search QPS of chip_smoke.py's 1M cell: 1,000 mixed queries in
+    one batch, k = 10, ef = 64, W = 4, the fused hop. The first run builds
+    the index (n = 1M, d = 128, ``vector_dataset`` seed 0, m = 16, efc =
+    64, chunk 32,768, with its tree's kernels) and saves it under
+    ``build/``; every run, that one too, loads it from there, so both trees
+    search the same graph. QPS of each of SEARCH_REPEATS batches by the
+    host clock, the card synchronised at both ends (as the smoke's
+    ``timed_search``), and a digest of the ids."""
+    import os
+    import time
+
+    import chip_smoke as smoke
+    from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig
+    from repro_torch.data import make_workload, vector_dataset
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                        SEARCH_INDEX)
+    if not os.path.exists(path):
+        vectors, attrs, _, _ = vector_dataset(
+            1_000_000, 128, seed=0, n_clusters=64, attr_kind="uniform",
+            queries=1000, labels=True)
+        t0 = time.perf_counter()
+        index = RangeGraphIndex.build(
+            vectors, attrs[:, 0],
+            BuildConfig(m=16, ef_construction=64, chunk=smoke.BUILD_CHUNK))
+        torch.cuda.synchronize()
+        out["search_index_build_s"] = time.perf_counter() - t0
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+        torch.save(index, path)
+        del index, vectors, attrs
+    index = torch.load(path, map_location=dev, weights_only=False)
+    wl = make_workload(index, "mixed", n_queries=1000, seed=1)
+    lo, hi = index.attrs[wl.L], index.attrs[wl.R]
+    cfg = SearchConfig(ef=64, expand_width=4, hop_impl="cuda")
+    index.search(wl.queries[:8], lo[:8], hi[:8], k=10, config=cfg)
+    qps = []
+    for _ in range(SEARCH_REPEATS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = index.search(wl.queries, lo, hi, k=10, config=cfg)
+        ids = res.ids.cpu()
+        qps.append(len(wl.queries) / (time.perf_counter() - t0))
+    out["search_qps"] = qps
+    out["search_qps_median"] = sorted(qps)[len(qps) // 2]
+    out["search_ids_digest"] = digest(ids)
 
 
 def flash_part(out, dev, g):

@@ -15,6 +15,7 @@ Nothing here runs at import time.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -28,7 +29,7 @@ import torch
 
 __all__ = [
     "SOURCES", "build_all", "library", "check", "check_tensor",
-    "stream_of", "ptxas_report", "ptxas_summary",
+    "stream_of", "on_device", "ptxas_report", "ptxas_summary",
 ]
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
@@ -188,6 +189,22 @@ def check_tensor(t: torch.Tensor, name: str, dtype: torch.dtype, ndim: int,
         raise ValueError(f"{name}: must be contiguous")
 
 
+# one C call for the current stream's handle, where torch has it
+_RAW_STREAM = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+_SAME_DEVICE = contextlib.nullcontext()
+
+
 def stream_of(device: torch.device) -> int:
     """PyTorch's current stream on ``device``, as an integer handle."""
+    if _RAW_STREAM is not None and device.index is not None:
+        return _RAW_STREAM(device.index)
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def on_device(device: torch.device):
+    """A context in which ``device`` is the current card: nothing to do
+    where it already is, the common case (entering ``torch.cuda.device``
+    costs a search loop's launch several µs of host time)."""
+    if device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)

@@ -35,11 +35,19 @@ def _entry():
 
 
 def frontier_bounds(L, R, F: int, device) -> tuple[torch.Tensor, torch.Tensor]:
-    """Broadcast scalar or [F] ranges to contiguous int32[F] on ``device``."""
-    L = torch.as_tensor(L, dtype=torch.int32, device=device)
-    R = torch.as_tensor(R, dtype=torch.int32, device=device)
-    return (L.broadcast_to((F,)).contiguous(),
-            R.broadcast_to((F,)).contiguous())
+    """Broadcast scalar or [F] ranges to contiguous int32[F] on ``device``
+    (ranges that already are, as the search passes them, pass as they
+    are)."""
+    return _bounds(L, F, device), _bounds(R, F, device)
+
+
+def _bounds(x, F: int, device) -> torch.Tensor:
+    if (isinstance(x, torch.Tensor) and x.dtype == torch.int32
+            and x.shape == (F,) and x.device == device
+            and x.is_contiguous()):
+        return x
+    x = torch.as_tensor(x, dtype=torch.int32, device=device)
+    return x.broadcast_to((F,)).contiguous()
 
 
 def check_table(nbrs: torch.Tensor, logn: int, m_out: int, dev) -> None:

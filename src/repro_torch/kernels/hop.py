@@ -3,12 +3,15 @@
 Replaces the TPU kernel ``repro/kernels/hop.py::_hop_kernel`` (line 61)
 in every stored layout of the vector table (f32, bf16, f16, ``Int8Vectors``,
 ``PQVectors``: the TPU kernel's static ``codec`` bodies, lines 180-232).
-The kernel is ``csrc/hop.cu``; it reuses the device functions of the
-gather-distance and edge-select kernels (``csrc/common.cuh``). Its header
-says what bounds it on the H100 (memory: edge blocks, visited words, and
-the stored rows of newly visited ids) and what its design does about that (one
-block per query; the visited row stays in global memory, read and
-``atomicOr``-ed word by word after the lowest-slot-wins dedup). The plain
+The kernel is ``csrc/hop.cu``; it runs the selection of the edge-select
+kernel and the distances of the gather-distance kernel (``csrc/common.cuh``),
+so its outputs are bit-identical to the composed hop's. Its header says
+what bounds it on the H100 (memory and a chain of dependent round trips:
+edge ids, visited words, the stored rows of newly visited ids) and what its
+design does about that (one CTA per query; the scanned layers' edge ids
+copied into shared memory at once; the visited row read and ``atomicOr``-ed
+in global memory, one thread a slot; the new rows' loads all in flight).
+Its launch plan is ``gather_distance.plan`` with the hop's edges. The plain
 version is ``kernels/ref.py::hop`` (``plain`` here).
 """
 from __future__ import annotations
@@ -32,7 +35,7 @@ _METRICS = {"l2": 0, "ip": 1}
 @functools.cache
 def _entry():
     f = _build.library("hop").rt_hop
-    f.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 13 \
+    f.argtypes = [ctypes.c_void_p] * 12 + [ctypes.c_int] * 14 \
         + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
@@ -73,14 +76,16 @@ def hop_cuda(q, table, nbrs, u, L, R, visited, exp_ok, *, logn, m_out,
     if B == 0 or W == 0:
         return nbr, ndist, nvalid, visited
     layers, m = nbrs.shape[1], nbrs.shape[2]
-    with torch.cuda.device(dev):
+    p = _gather.plan(B, WM, t.layout, d, _gather.rows_vec(t),
+                     hop=(W, layers * m))
+    with _build.on_device(dev):
         rc = _entry()(q.data_ptr(), t.data.data_ptr(), t.aux_ptr,
                       nbrs.data_ptr(), u.data_ptr(), L.data_ptr(),
                       R.data_ptr(), visited.data_ptr(), exp_ok.data_ptr(),
                       nbr.data_ptr(), ndist.data_ptr(), nvalid.data_ptr(),
                       B, W, n, d, t.sub, t.code, layers, m, logn,
                       int(bool(skip_layers)), m_out, words, _METRICS[metric],
-                      _build.stream_of(dev))
+                      p.warps, _build.stream_of(dev))
     _build.check(rc, "hop", "hop")
     hop_cuda.launches += 1
     hop_cuda.layout_launches[t.layout] += 1

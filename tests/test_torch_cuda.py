@@ -24,7 +24,11 @@ gives 0 on a row that sees no key, as the TPU kernel does. The all-pairs distanc
 kernel runs ``repro``'s shape sweep (tests/test_kernels.py) and one ragged
 large shape in f32, bf16 and f16, l2 and ip, within 1e-5 of its terms; the
 prune runs on every stored layout (bf16, f16, int8, PQ) at d = 128 and
-1024, kept ids identical to the plain version's.
+1024, kept ids identical to the plain version's. gather_dist runs in every
+regime of its launch plan (a query row over several tasks, one a task),
+with a row of no valid slot, and the fused hop in both of its warp
+counts; the fused hop's four outputs equal the composed hop's bit for
+bit, distances included.
 """
 import numpy as np
 import pytest
@@ -109,6 +113,56 @@ def test_gather_dist(dev, d, metric, layout):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4)
 
 
+# the gather's launch plan (kernels/gather_distance.py::plan) in each of
+# its regimes: B = 1 and 64 split a query row's slots over several warps'
+# tasks, 4,097 takes one query row a task (two at d = 1,024); d = 128 and
+# 1,024 run the unrolled row widths, 13 and 24 the loop (13: scalar loads)
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("d", [13, 24, 128, 1024])
+@pytest.mark.parametrize("M", [3, 37, 64])
+@pytest.mark.parametrize("B", [1, 64, 4097])
+def test_gather_dist_plan_regimes(dev, B, M, d, layout):
+    from repro_torch.kernels.gather_distance import plan, rows_vec, \
+        table_args
+
+    g = torch.Generator().manual_seed(B + M + d)
+    n = 777
+    table = storage.encode_vectors(torch.randn((n, d), generator=g).to(dev),
+                                   LAYOUTS[layout])
+    q = torch.randn((B, d), generator=g).to(dev)
+    ids = torch.randint(-1, n, (B, M), generator=g,
+                        dtype=torch.int32).to(dev)
+    ids[B // 2] = -1  # a row with no valid slot
+    got = gather_dist_cuda(q, table, ids)
+    want = ref.gather_dist(q, table, ids)
+    _close(got, want, q, table, ids)
+    assert bool(torch.isinf(got[B // 2]).all())
+    t = table_args(table, dev)
+    p = plan(B, M, t.layout, d, rows_vec(t))
+    assert p.slots * p.split >= M and p.slots <= 64
+
+
+# the hop's plan: 16 warps a CTA below 264 queries, 4 at or above
+@pytest.mark.parametrize("layout", list(LAYOUTS))
+@pytest.mark.parametrize("d", [128, 1024])
+@pytest.mark.parametrize("B", [7, 300])
+def test_hop_plan_regimes(dev, B, d, layout):
+    p = _problem(dev, n=1000, d=d, m=8, B=B, W=4, seed=B)
+    table = storage.encode_vectors(p["table"], LAYOUTS[layout])
+    args = (p["q"], table, p["nbrs"], p["u"], p["Lw"], p["Rw"])
+    got = hop_cuda(*args, p["vis"].clone(), p["exp_ok"], logn=p["logn"],
+                   m_out=16)
+    want = ref.hop(*args, p["vis"].clone(), p["exp_ok"], logn=p["logn"],
+                   m_out=16)
+    comp = ops.hop(*args, p["vis"].clone(), p["exp_ok"], logn=p["logn"],
+                   m_out=16, impl="composed")
+    for i in (0, 2, 3):
+        assert torch.equal(got[i], want[i])
+    for a, b in zip(got, comp):
+        assert torch.equal(a, b)
+    _close(got[1], want[1], p["q"], table, got[0])
+
+
 @pytest.mark.parametrize("skip_layers", [True, False])
 @pytest.mark.parametrize("case", ["random", "L>R", "L==R", "full"])
 def test_select_edges(dev, skip_layers, case):
@@ -159,6 +213,8 @@ def test_hop(dev, d, metric, layout):
                    m_out=8, metric=metric)
     for i in (0, 2, 3):
         assert torch.equal(comp[i], auto[i])
+    # and the same distances, bit for bit: both run common.cuh warp_dists
+    assert torch.equal(comp[1], auto[1])
     counts = ops.launch_counts()
     assert counts["hop"] == 1 and counts["select_edges"] == 1
     assert counts["gather_dist"] == 1
