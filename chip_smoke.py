@@ -22,13 +22,26 @@ the full-size run, one card). It
      plain torch; recall@10 >= 0.70 for the workload at ef=256 and for
      queries drawn around the data's own centres at ef=64 (see
      MIN_RECALL), and prints why wide ranges lose recall;
+  4b. drives the paper's comparison methods on the same index and
+     queries at ef = 64 (``baselines_phase``), each with every count at 0
+     just before it and once more with every impl pinned to plain torch:
+     post-, in- and super-post-filtering, BasicSearch, the Oracle (two
+     ranges of 65,536 items, a cut: printed as ``CUT:``; the builds timed
+     apart from the search) and the multi-attribute search in its post,
+     in and adaptive modes (a second attribute drawn as Fig. 5 draws it);
+     prints recall@10, QPS, mean hops and distances and launches per
+     kernel of each; fails unless each method's recall is within 0.01 of
+     its plain run, Pre-filtering's ids equal ``brute_force``'s, and
+     gather_dist launched on every filtered search, edge_select on every
+     multi-attribute search and the prune on the Oracle's builds;
   5. holds every kernel against its plain version on the card at the main
      path's shapes (integers equal; distances within 1e-5 of the magnitude
      of their terms, ``‖q‖² + ‖x‖²``, since both sum d products in another
      order; prune rows may differ only at near-tie keep decisions,
      ``|alpha*cc - du| <= 1e-5*du``, in under 0.1% of rows; the bound
      counts what the inputs need) and times kernel, plain version and
-     bound with CUDA events;
+     bound (gather_dist, edge_select and the hop by device time with L2
+     cold, ``device_ms``; the others with CUDA events);
   6. drives the codec path with every count at 0: re-encodes the 1M index
      with ``astype_storage`` to bf16, f16 (both with "auto" ids), int8 and
      PQ (both with split ids; PQ with its int8 rerank sidecar), printing
@@ -129,6 +142,28 @@ MIN_RECALL = 0.70
 QUALITY_EF = 256
 WITNESS_N = 131072        # the kernel-vs-plain build witness's size
 MAIN_KERNELS = ("gather_dist", "select_edges", "hop", "prune")
+
+# The baselines phase (core/baselines.py, core/multiattr.py) on the 1M
+# index and the main path's 1,000 queries: each method once with the
+# kernels and once all-plain, at ef = BASE_EF. The oracle builds two
+# ranges of ORACLE_SPAN items (Fig. 4: one per range of n >> i, i < 6), with
+# ORACLE_QUERIES queries each; multi-attribute queries draw their second
+# attribute as Fig. 5 does (seed 5, value ranges 0.25 wide).
+BASE_EF = 64
+ORACLE_SPAN = 65536
+ORACLE_QUERIES = 50
+BASIC_QUERIES = 1000      # basic_search's queries (all of the main path's)
+BASE_MAX_S = 120.0        # what the phase may add to the smoke
+BASE_KERNELS = {          # method -> kernels that must launch on it
+    "postfilter": ("gather_dist",),
+    "infilter": ("gather_dist",),
+    "super_postfilter": ("gather_dist",),
+    "basic_search": ("gather_dist",),
+    "oracle_search": ("gather_dist", "prune"),
+    "multiattr[post]": ("gather_dist", "select_edges"),
+    "multiattr[in]": ("gather_dist", "select_edges"),
+    "multiattr[adaptive]": ("gather_dist", "select_edges"),
+}
 
 # The embed -> build -> serve path (launch/serve.py) at qwen3-0.6b's full
 # width: params f32, compute bf16, seeded random weights (no checkpoint is
@@ -666,13 +701,8 @@ def table_kernels(torch, name, table, nbrs, q, ids, hop_args,
     pms = time_ms(torch, lambda i: ref.hop(
         q, table, nbrs, u, Lw, Rw, vis_p[i], exp_ok, logn=logn,
         m_out=m_out), iters=5)
-    n_new = int(gp[2].sum())
-    nd = int(torch.unique(gp[0][gp[2]]).numel())
-    pre_valid = (gp[0] >= 0) & exp_ok.repeat_interleave(m_out, dim=1)
     need = hop_need(nbrs, gp[0])
-    nbytes = (B * d * 4 + B * W * 13 + need * 4 + int(pre_valid.sum()) * 4
-              + n_new * 4 + nd * row + once + B * W * m_out * 9)
-    bms, by = bound_ms(nbytes, n_new * 4 * d)
+    bms, by, nd = hop_bound(torch, table, exp_ok, gp, need, d, m_out)
     K = nbrs.shape[1] * nbrs.shape[2]
     records["hop"] = dict(
         ok=int_ok and good and composed_same, max_abs_err=err, ms=dms,
@@ -683,6 +713,25 @@ def table_kernels(torch, name, table, nbrs, q, ids, hop_args,
         shape=f"B={B} W={W} m_out={m_out} n={storage.table_n(table)} "
               f"d={d}{tag}")
     return records
+
+
+def hop_bound(torch, table, exp_ok, plain_out, need, d, m_out):
+    """(bound ms, bound_by, distinct rows) of one hop launch: q, the
+    frontier and its bounds, the ``need`` edge ids the selection reads,
+    one visited word per pre-valid edge, the new ids' distances, each
+    distinct new row once at its stored width and the outputs, over the
+    card's memory rate; 4d operations per new row. ``plain_out`` is the
+    plain hop's (nbr, ndist, nvalid, visited)."""
+    nbr, _, nvalid, _ = plain_out
+    B, W = exp_ok.shape
+    row, once = stored_row_bytes(table)
+    n_new = int(nvalid.sum())
+    nd = int(torch.unique(nbr[nvalid]).numel())
+    pre_valid = (nbr >= 0) & exp_ok.repeat_interleave(m_out, dim=1)
+    nbytes = (B * d * 4 + B * W * 13 + need * 4 + int(pre_valid.sum()) * 4
+              + n_new * 4 + nd * row + once + B * W * m_out * 9)
+    bms, by = bound_ms(nbytes, n_new * 4 * d)
+    return bms, by, nd
 
 
 def codec_files(torch, codec_idx, wl, lo_val, hi_val, names) -> bool:
@@ -1558,6 +1607,144 @@ def buildpath_phase(torch) -> tuple[dict, dict, bool]:
             "agreement": agree}, counts, ok
 
 
+def baselines_phase(torch, index, queries, L, R, gt) -> tuple[dict, bool]:
+    """The paper's comparison methods and its multi-attribute search on the
+    main path's index and queries (``queries``, rank ranges ``L``/``R``,
+    ground truth ``gt``), at ef = BASE_EF. Each method runs with every
+    count at 0 just before it and is read just after; then again with
+    every impl pinned to plain torch. Prints one line per method (recall@10
+    against its ground truth, QPS, mean hops and distances, launches per
+    kernel). Gates: each method's recall within 0.01 of its plain run;
+    ``prefilter`` ids equal to ``brute_force``'s; every kernel of
+    BASE_KERNELS launched on its method. Returns ({method: record}, ok)."""
+    from repro_torch import SearchConfig, recall
+    from repro_torch.core import baselines, multiattr
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    dev = index.device
+    n = index.n
+    B = len(queries)
+    cfg = SearchConfig(ef=BASE_EF, expand_width=4)
+    plain = cfg.replace(hop_impl="torch", edge_impl="torch",
+                        dist_impl="torch")
+    ok = True
+    out = {}
+
+    # Fig. 5's second attribute and value ranges, and their ground truth
+    rng = np.random.default_rng(5)
+    attr2 = rng.uniform(0, 1.0, n).astype(np.float32)
+    lo2 = rng.uniform(0, 0.5, B).astype(np.float32)
+    hi2 = (lo2 + 0.25).astype(np.float32)
+    t0 = time.perf_counter()
+    gt2, _ = multiattr.brute_force_multiattr(index, attr2, queries, L, R,
+                                             lo2, hi2, k=10)
+    gt2_s = time.perf_counter() - t0
+    # the oracle's two ranges (Fig. 4's seed), on the first queries
+    span = min(ORACLE_SPAN, n // 4)
+    print(f"CUT: baselines oracle on two ranges of {span:,} items, "
+          f"{ORACLE_QUERIES} queries each (Fig. 4 builds one graph per "
+          f"range of n >> i items, i < 6, n = {n:,})",
+          flush=True)
+    orng = np.random.default_rng(4)
+    o_lo = [int(orng.integers(0, n - span)) for _ in range(2)]
+    oL = np.repeat(np.asarray(o_lo, np.int32), ORACLE_QUERIES)
+    oR = (oL + span - 1).astype(np.int32)
+    oq = queries[:2 * ORACLE_QUERIES]
+    t0 = time.perf_counter()
+    o_gt, _ = index.brute_force(oq, oL, oR, k=10)
+    gt_s = time.perf_counter() - t0
+    nb = min(BASIC_QUERIES, B)
+    if nb < B:
+        print(f"CUT: baselines basic_search on the first {nb} of {B} "
+              "queries", flush=True)
+    cache: dict = {}
+    methods = {  # name -> (search(config) -> SearchResult, ground truth)
+        name: (lambda c, _f=getattr(baselines, name): _f(
+            index, queries, L, R, k=10, config=c), gt)
+        for name in ("postfilter", "infilter", "super_postfilter")}
+    methods["basic_search"] = (lambda c: baselines.basic_search(
+        index, queries[:nb], L[:nb], R[:nb], k=10, config=c), gt[:nb])
+    methods["oracle_search"] = (lambda c: baselines.oracle_search(
+        index, oq, oL, oR, k=10, config=c, cache=cache), o_gt)
+    for mode in multiattr.MODES:
+        methods[f"multiattr[{mode}]"] = (
+            lambda c, _m=mode: multiattr.search_multiattr(
+                index, attr2, queries, L, R, lo2, hi2, k=10, mode=_m,
+                seed=0, config=c), gt2)
+
+    def timed(fn, c):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        res = fn(c)
+        ids = res.ids.cpu().numpy()
+        return res, ids, time.perf_counter() - t0
+
+    for name, (fn, want) in methods.items():
+        ops.reset_launch_counts()
+        build_s = None
+        if name == "oracle_search":  # its builds, then its search alone
+            t0 = time.perf_counter()
+            fn(cfg)
+            torch.cuda.synchronize(dev)
+            build_s = time.perf_counter() - t0
+        res, ids, secs = timed(fn, cfg)
+        counts = {k: v for k, v in ops.launch_counts().items() if v}
+        _, pids, psecs = timed(fn, plain)
+        r, rp = recall(ids, want), recall(pids, want)
+        nq = len(ids)
+        rec = dict(queries=nq, seconds=secs, qps=nq / secs, recall=r,
+                   plain_recall=rp, plain_qps=nq / psecs,
+                   mean_hops=float(res.n_hops.float().mean()),
+                   mean_dists=float(res.n_dists.float().mean()),
+                   launches=counts)
+        if build_s is not None:
+            rec.update(build_s=build_s, ranges=2, span=span)
+        out[name] = rec
+        never = [k for k in BASE_KERNELS[name] if not counts.get(k)]
+        good = abs(r - rp) <= 0.01 and not never
+        print(f"baselines[{name} ef={BASE_EF}]: {nq} queries in "
+              f"{secs:.3f} s = {nq / secs:.1f} QPS; recall@10 {r:.4f} "
+              f"(all-plain {rp:.4f}, {nq / psecs:.1f} QPS); mean hops "
+              f"{rec['mean_hops']:.1f}; mean distances "
+              f"{rec['mean_dists']:.1f}; launches {json.dumps(counts)}"
+              + ("" if build_s is None else
+                 f"; builds {build_s:.1f} s for 2 ranges of {span:,}")
+              + ("" if good else "  FAILED"), flush=True)
+        if never:
+            print(f"baselines[{name}]: kernels never launched: {never}",
+                  flush=True)
+        if abs(r - rp) > 0.01:
+            print(f"baselines[{name}]: recall {r:.4f} is not within 0.01 "
+                  f"of the all-plain run's {rp:.4f}", flush=True)
+        ok &= good
+
+    # Pre-filtering is the exact scan: its ids are brute_force's
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    pre = baselines.prefilter(index, queries, L, R, k=10)
+    pids = pre.ids.cpu().numpy()
+    secs = time.perf_counter() - t0
+    same = bool(np.array_equal(pids, gt))
+    out["prefilter"] = dict(queries=B, seconds=secs, qps=B / secs,
+                            recall=recall(pids, gt), equals_brute_force=same,
+                            mean_dists=float(pre.n_dists.float().mean()))
+    print(f"baselines[prefilter]: {B} queries in {secs:.3f} s = "
+          f"{B / secs:.1f} QPS (plain torch, one query at a time); ids equal "
+          f"brute_force's: {same}; mean distances "
+          f"{out['prefilter']['mean_dists']:.1f}"
+          + ("" if same else "  FAILED"), flush=True)
+    ok &= same
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase[baselines]: {phase_s:.1f} s (of at most {BASE_MAX_S:.0f}; "
+          f"ground truth: multi-attribute {gt2_s:.1f} s, oracle ranges "
+          f"{gt_s:.1f} s)", flush=True)
+    if phase_s > BASE_MAX_S:
+        print(f"phase[baselines]: over its {BASE_MAX_S:.0f} s", flush=True)
+    out["phase_s"] = phase_s
+    return out, ok
+
+
 def run(args):
     import torch
 
@@ -1733,6 +1920,10 @@ def run(args):
     profile_search(torch, lambda: index.search(
         wl.queries, lo_val, hi_val, k=10, config=runs["fused"]))
 
+    # -- the paper's baselines and the multi-attribute search ---------------
+    base_recs, good = baselines_phase(torch, index, wl.queries, L, R, gt)
+    ok &= good
+
     # -- every kernel against its plain version, at main-path shapes --------
     records = {}
     table = index.vectors
@@ -1748,15 +1939,20 @@ def run(args):
     got = select_edges_cuda(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
     want = ref.select_edges(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
     err = int((got - want).abs().max())
-    kms = time_ms(torch, lambda i: select_edges_cuda(
-        nbrs, us, Lw, Rw, logn=logn, m_out=m_out))
+    def select(i):
+        return select_edges_cuda(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
+
+    dms, how = device_ms(torch, select, "edge_select_kernel")
+    hus = host_us(torch, select)
+    kms = time_ms(torch, select)
     pms = time_ms(torch, lambda i: ref.select_edges(
         nbrs, us, Lw, Rw, logn=logn, m_out=m_out), iters=5)
     need = edge_positions_needed(torch, nbrs, us, Lw, Rw, logn, want)
     bms, by = bound_ms(3 * F * 4 + need * 4 + F * m_out * 4, 0.0)
     records["select_edges"] = dict(
-        ok=err == 0, max_abs_err=float(err), ms=kms, plain_ms=pms,
-        bound_ms=bms, bound_by=by,
+        ok=err == 0, max_abs_err=float(err), ms=dms, timed_by=how,
+        event_ms=kms, host_us=hus, plain_ms=pms, bound_ms=bms, bound_by=by,
+        edge_ids_needed=need,
         shape=f"F={F} K={nbrs.shape[1] * nbrs.shape[2]} m_out={m_out}")
 
     # gather_dist at [B, W*m_out] ids (the hop's edges), and the fused hop
@@ -1829,6 +2025,10 @@ def run(args):
         rec = records[name]
         ok &= rec["ok"]
         kernels.append(kernel_entry(name, rec, cu, tpu, counts[name]))
+        kernels[-1]["baselines_launches"] = {
+            meth: r["launches"].get(name, 0)
+            for meth, r in base_recs.items()
+            if isinstance(r, dict) and "launches" in r}
         if "rows_differ" in rec:
             kernels[-1].update(rows_differ=rec["rows_differ"],
                                near_ties=rec["near_ties"],

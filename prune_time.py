@@ -388,6 +388,11 @@ def hop_part(out, dev, g):
                 else 0.0
             out[f"{tag}_digest"] = digest(*got)
             out[f"{tag}_new"] = int(want[2].sum())
+            need = smoke.edge_positions_needed(
+                torch, nbrs, u.reshape(-1), Lw, Rw, logn,
+                want[0].reshape(-1, m_out))
+            out[f"{tag}_bound_ms"], _, _ = smoke.hop_bound(
+                torch, table, exp_ok, want, need, d, m_out)
             vis = [vis0.clone() for _ in range(12)]
 
             def call(i):

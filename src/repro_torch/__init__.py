@@ -10,7 +10,10 @@ that the CPU runs and the card is checked against.
 Tables may be stored in any of ``repro``'s codecs (``core/storage.py``:
 bf16/f16, int8, PQ with an int8 rerank sidecar, split neighbor ids); the
 search kernels and the prune decode the stored rows in registers.
-``repro_torch.bench`` holds the roofline and build-path benchmarks.
+``repro_torch.core.baselines`` and ``repro_torch.core.multiattr`` hold the
+paper's comparison methods and its multi-attribute search;
+``repro_torch.bench`` the roofline and build-path benchmarks and the
+paper's figure and table scripts.
 
 Entry points run on the card unless the caller passes ``device="cpu"``.
 Importing this package imports torch and numpy only: no JAX, nothing of

@@ -3,9 +3,20 @@
 
 Timing is by CUDA events on the card and by the host clock on the CPU;
 every record names the device it ran on (:func:`device_info`).
+
+The figure and table scripts (``fig*.py``, ``table*.py``,
+``scalability.py``) share :data:`BENCH_DATASETS` (``repro``'s names, dims
+and attribute kinds at its CPU sizes), :func:`build_index` with its cache,
+:func:`make_searcher` and :func:`measure` (QPS with the card synchronised
+around the timed call, recall@10 against ``brute_force``, mean distance
+count). An ``n`` override scales every dataset's n by ``n /``
+:data:`BASE_N` and changes nothing else: ``n=1_000_000`` builds the
+largest at 1M.
 """
 from __future__ import annotations
 
+import json
+import os
 import pathlib
 import subprocess
 import time
@@ -13,10 +24,33 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import BuildConfig, RangeGraphIndex
+from repro_torch.core import storage as storage_mod
+from repro_torch.core.index import recall
+from repro_torch.data import Workload, make_workload, vector_dataset
+from repro_torch.device import resolve_device
+
 __all__ = [
     "emit", "artifacts_dir", "time_calls", "device_info", "card_line",
     "elemental_table", "prune_parity", "PRUNE_TIE_RTOL", "PRUNE_MAX_DIFF",
+    "BENCH_DATASETS", "BASE_N", "DEFAULT_K", "Workload", "make_workload",
+    "dataset_n", "build_config", "build_index", "make_searcher", "measure",
+    "write_record", "sync",
 ]
+
+# CPU-scale stand-ins for the paper's datasets (Table 1), as in ``repro``
+BENCH_DATASETS = {
+    # name: (n, dim, attr_kind)
+    "wit-like": (8192, 128, "uniform"),
+    "tripclick-like": (4096, 96, "clustered"),
+    "ytaudio-like": (4096, 64, "uniform"),
+}
+BASE_N = 8192             # the largest dataset's n: what ``n`` replaces
+DEFAULT_K = 10
+# nodes per build step on the card: the chunk never changes the built
+# table, only how many launches a level takes (``core/build.py``)
+CUDA_BUILD_CHUNK = 32768
+_CACHE: dict = {}
 
 ROOT = pathlib.Path(__file__).resolve().parents[3]
 PRUNE_TIE_RTOL = 1e-5     # prune: a keep decision within this of du
@@ -154,3 +188,101 @@ def prune_parity(got, want, cand, du, vecs, m, alpha=1.0,
                for r in diff)
     ok = ties == len(diff) and len(diff) <= PRUNE_MAX_DIFF * got.shape[0]
     return len(diff), ties, ok
+
+
+# ---------------------------------------------------------------------------
+# The figure and table scripts' harness (``repro``'s benchmarks/common.py)
+# ---------------------------------------------------------------------------
+
+def dataset_n(name: str, n: int | None = None) -> int:
+    """A dataset's n: ``repro``'s, or scaled by ``n / BASE_N``."""
+    base = BENCH_DATASETS[name][0]
+    return base if n is None else max(int(round(base * n / BASE_N)), 2)
+
+
+def build_config(device: torch.device, **kw) -> BuildConfig:
+    """``BuildConfig(**kw)``, with the card's build chunk on the card."""
+    if device.type == "cuda":
+        kw.setdefault("chunk", CUDA_BUILD_CHUNK)
+    return BuildConfig(**kw)
+
+
+def build_index(name: str, *, n: int | None = None, m=16, efc=64, seed=0,
+                storage=None, device=None) -> RangeGraphIndex:
+    """The named dataset's index (cached by every argument): ``storage``
+    an optional ``StorageConfig``, ``n`` the scale override."""
+    dev = resolve_device(device)
+    storage = storage or storage_mod.StorageConfig()
+    nn = dataset_n(name, n)
+    key = (name, nn, m, efc, seed, storage, str(dev))
+    if key not in _CACHE:
+        _, dim, attr_kind = BENCH_DATASETS[name]
+        vectors, attrs, _ = vector_dataset(nn, dim, seed=seed,
+                                           attr_kind=attr_kind)
+        _CACHE[key] = RangeGraphIndex.build(
+            vectors, attrs[:, 0], build_config(dev, m=m, ef_construction=efc),
+            device=dev, storage=storage)
+    return _CACHE[key]
+
+
+def make_searcher(index: RangeGraphIndex, *, config=None, bucket=True):
+    """Bind an index and a ``SearchConfig`` into the ``search_fn(q, L, R,
+    k)`` that :func:`measure` takes; ``bucket`` rounds k up to
+    ``config.k_bucket`` as the serving engine does, and slices back."""
+    from repro_torch.core.config import SearchConfig
+
+    config = config or SearchConfig()
+
+    def search_fn(q, L, R, k):
+        kb = config.bucket_k(k) if bucket else k
+        res = index.search_ranks(q, L, R, k=kb, config=config)
+        if kb != k:
+            res = res._replace(ids=res.ids[:, :k], dists=res.dists[:, :k])
+        return res
+
+    return search_fn
+
+
+def sync(device: torch.device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def measure(search_fn, wl: Workload, index, *, k=DEFAULT_K, warmup=True):
+    """dict(qps, recall, mean_dists) of ``search_fn(q, L, R, k)`` on the
+    workload: one timed call over every query, the card synchronised
+    before it and the ids copied to the host inside it."""
+    gt, _ = index.brute_force(wl.queries, wl.L, wl.R, k=k)
+    if warmup:
+        search_fn(wl.queries[:8], wl.L[:8], wl.R[:8], k)
+    sync(index.device)
+    t0 = time.perf_counter()
+    res = search_fn(wl.queries, wl.L, wl.R, k)
+    ids = storage_mod.to_numpy(res.ids)
+    dt = time.perf_counter() - t0
+    return {
+        "qps": len(wl.queries) / dt,
+        "recall": recall(ids, gt),
+        "mean_dists": float(res.n_dists.float().mean()),
+    }
+
+
+def write_record(name: str, rows, columns, device: torch.device, *,
+                 n=None, quick=False, seconds=None, notes=None,
+                 out_dir=None) -> str:
+    """Write ``BENCH_torch_<name>.json`` (rows, their columns, where and
+    at what scale they ran) to ``out_dir`` or ``artifacts/``; returns the
+    path."""
+    doc = {
+        "bench": name, "columns": list(columns),
+        "rows": [list(r) for r in rows],
+        "n": n, "quick": bool(quick), "seconds": seconds,
+        "device_info": device_info(device), "card_line": card_line(),
+        "notes": notes or {},
+    }
+    path = os.path.join(out_dir or artifacts_dir(), f"BENCH_torch_{name}.json")
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(doc, f, indent=1,
+                  default=lambda o: o.item() if hasattr(o, "item") else str(o))
+    return path

@@ -1,5 +1,7 @@
 """iRangeGraph core of the port: config, storage, segment tree, bitset,
-search, build and the index API."""
+search, build and the index API; the paper's comparison methods
+(``core/baselines.py``) and its multi-attribute search
+(``core/multiattr.py``) import as submodules, as in ``repro``."""
 from repro_torch.core.build import (
     BuildConfig,
     build_flat_graph,

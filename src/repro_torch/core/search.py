@@ -1,7 +1,7 @@
 """Batched greedy beam search on the improvised range graphs (port of
 ``repro/core/search.py``: ``beam_search`` :114-327, the entry-point helpers
-:334-351, the improvised search :358-442 and ``search_fixed_layer``
-:445-490).
+:334-351, the improvised search :358-442, ``search_fixed_layer`` :445-490
+and the post-/in-filtering ``search_filtered`` :494-540).
 
 Per-query state is a candidate list ``(ids, dists, visited-flag)`` of size
 ``ef``, a packed ``int32[B, ceil(n/32)]`` visited bitset and an active
@@ -18,8 +18,13 @@ Two things differ from the JAX engine, neither in results:
     loop runs blocks of ``ITER_BLOCK`` iterations between syncs, capped
     exactly at ``max_iters``. An iteration after every query went
     inactive changes nothing: no frontier is expanded, nothing is marked
-    visited, and the stable re-sort of the already sorted list is the
-    identity. So the block size never changes results.
+    visited, the out-of-range counter stays, and the stable re-sort of the
+    already sorted lists is the identity; the coin of ``visit_prob_fn``
+    is still drawn, which advances the generator but touches no result.
+    So the block size never changes results.
+  * **The coin.** ``jax.random``'s stream cannot be matched: the coins
+    come from a ``torch.Generator`` the caller passes, on the queries'
+    device, one ``[B, W*M]`` draw per iteration.
 
 Vector tables may be stored in any codec (``core/storage.py``): the hop and
 gather-distance dispatch launch the kernel of the stored layout, and the
@@ -27,9 +32,14 @@ rerank pass decodes through ``storage.decode_rows``. Neighbor tables
 (``SplitNeighbors`` too) widen once, at the top of each search.
 
 ``beam_search`` has the two hop bodies of the JAX engine: a bound whole-hop
-``hop_fn`` (``kernels/ops.py::hop``) or the composed ``nbr_fn`` body. The
-two-list filtered searches (``result_filter_fn``/``visit_prob_fn``) are not
-ported yet (ROADMAP queue 1 item 9).
+``hop_fn`` (``kernels/ops.py::hop``) or the composed ``nbr_fn`` body. With
+``result_filter_fn`` it keeps two lists: the navigation list accepts every
+visited neighbor and a result list ``(res_ids, res_dists)``, merged with
+the same stable ``_smallest``, only those that pass the filter (the
+post-/in-filtering baselines, ``core/baselines.py``, and the
+multi-attribute search, ``core/multiattr.py``). The filter hooks in
+between edge selection and the visited update, so it needs the composed
+body: ``hop_fn`` with ``result_filter_fn`` raises.
 """
 from __future__ import annotations
 
@@ -51,6 +61,7 @@ __all__ = [
     "tile_frontier",
     "search_improvised",
     "search_fixed_layer",
+    "search_filtered",
 ]
 
 
@@ -90,6 +101,9 @@ def beam_search(
     k: int,
     config: SearchConfig | None = None,
     hop_fn: Callable | None = None,
+    result_filter_fn: Callable | None = None,
+    visit_prob_fn: Callable | None = None,
+    generator: torch.Generator | None = None,
 ) -> SearchResult:
     """Generic batched beam search (see the module docstring).
 
@@ -98,8 +112,22 @@ def beam_search(
     ``int32[B*W, M]``. hop_fn contract: ``(u int32[B, W], exp_ok bool[B,
     W], visited int32[B, words]) -> (nbr, ndist, nvalid, visited')`` with
     ``kernels/ref.py::hop``'s semantics.
+
+    result_filter_fn: optional ``ids[B, K] -> bool[B, K]``; the result
+      list then only accepts ids that pass it (two-list mode).
+    visit_prob_fn: optional ``(ids[B, K], t int32[B]) -> p f32[B, K]``,
+      the probability of visiting a neighbor that fails the result filter,
+      ``t`` the query's count of consecutive out-of-range expansions (p = 1
+      is post-filtering, p = 0 in-filtering). Without it every such
+      neighbor is visited.
+    generator: the ``torch.Generator`` the coins ``rand < p`` are drawn
+      from, on the queries' device; None draws from a fresh one seeded 0.
     """
     config = config or SearchConfig()
+    if hop_fn is not None and result_filter_fn is not None:
+        raise ValueError(
+            "beam_search: hop_fn is incompatible with result_filter_fn "
+            "(filtered searches need the composed hop body)")
     if hop_fn is None and nbr_fn is None:
         raise ValueError("beam_search: need nbr_fn or hop_fn")
     ef = config.ef
@@ -130,9 +158,22 @@ def beam_search(
     n_hops = torch.zeros((B,), dtype=torch.int32, device=dev)
     n_dists = valid.sum(1, dtype=torch.int32)
     active = torch.ones((B,), dtype=torch.bool, device=dev)
+    two_lists = result_filter_fn is not None
+    if two_lists:
+        ok = result_filter_fn(e.clamp_min(0)) & valid
+        res_ids = torch.cat([torch.where(ok, e, -1), cand_ids[:, e.shape[1]:]],
+                            1)
+        res_dists = torch.cat(
+            [torch.where(ok, dists, inf), cand_dists[:, e.shape[1]:]], 1)
+        if visit_prob_fn is not None and generator is None:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(0)
+    else:
+        res_ids, res_dists = cand_ids, cand_dists
+    t = torch.zeros((B,), dtype=torch.int32, device=dev)
 
     def body(cand_ids, cand_dists, cand_vis, visited, active, n_hops,
-             n_dists):
+             n_dists, res_ids, res_dists, t):
         unvisited = torch.where(cand_vis | (cand_ids < 0), inf, cand_dists)
         # top-W unvisited candidates; slot 0 is the argmin
         sel_dists, slots = _smallest(unvisited, W)           # [B, W]
@@ -155,6 +196,19 @@ def beam_search(
             M = nbr.shape[1]
             nbr = nbr.reshape(B, W * M)
             pre_valid = (nbr >= 0) & exp_ok.repeat_interleave(M, dim=1)
+            if two_lists:
+                in_rng = result_filter_fn(nbr.clamp_min(0))
+                if visit_prob_fn is not None:
+                    p = visit_prob_fn(nbr.clamp_min(0), t)
+                    coin = torch.rand((B, W * M), generator=generator,
+                                      device=dev)
+                    pre_valid = pre_valid & (in_rng | (coin < p))
+                # the consecutive out-of-range counter follows the
+                # expanded nodes
+                u_in = result_filter_fn(u.clamp_min(0)) & exp_ok
+                num_out = (exp_ok & ~u_in).sum(1, dtype=torch.int32)
+                t = torch.where(exp_ok.any(1),
+                                torch.where(u_in.any(1), 0, t + num_out), t)
             visited, seen = bitset.test_and_set(visited, nbr, pre_valid)
             nvalid = pre_valid & ~seen
             ndist = gdist(torch.where(nvalid, nbr, -1))
@@ -167,21 +221,30 @@ def beam_search(
         cand_dists, idx = _smallest(all_dists, ef)
         cand_ids = all_ids.gather(1, idx)
         cand_vis = all_vis.gather(1, idx)
+        if two_lists:
+            rvalid = nvalid & in_rng
+            r_ids = torch.cat([res_ids, torch.where(rvalid, nbr, -1)], 1)
+            r_dists = torch.cat(
+                [res_dists, torch.where(rvalid, ndist, inf)], 1)
+            res_dists, ridx = _smallest(r_dists, ef)
+            res_ids = r_ids.gather(1, ridx)
+        else:
+            res_ids, res_dists = cand_ids, cand_dists
         return (cand_ids, cand_dists, cand_vis, visited, active, n_hops,
-                n_dists)
+                n_dists, res_ids, res_dists, t)
 
     state = (cand_ids, cand_dists, cand_vis, visited, active, n_hops,
-             n_dists)
+             n_dists, res_ids, res_dists, t)
     it = 0
     while it < max_iters and bool(state[4].any()):
         stop = min(max_iters, it + ITER_BLOCK)
         for _ in range(it, stop):
             state = body(*state)
         it = stop
-    cand_ids, cand_dists, _, _, _, n_hops, n_dists = state
+    _, _, _, _, _, n_hops, n_dists, res_ids, res_dists, _ = state
 
-    out_dists, idx = _smallest(cand_dists, k)
-    out_ids = cand_ids.gather(1, idx)
+    out_dists, idx = _smallest(res_dists, k)
+    out_ids = res_ids.gather(1, idx)
     out_ids = torch.where(torch.isfinite(out_dists), out_ids, -1)
     return SearchResult(out_ids, out_dists, n_hops, n_dists)
 
@@ -300,3 +363,41 @@ def search_fixed_layer(vectors, nbrs, queries, seg_lo, seg_hi, *, layer, k,
         return torch.where(ok & (u >= 0)[:, None], row, -1)
 
     return beam_search(vectors, queries, entries, nbr_fn, k=k, config=config)
+
+
+def search_filtered(vectors, nbrs, queries, L, R, *, mode, k,
+                    config: SearchConfig | None = None) -> SearchResult:
+    """Post-/In-filtering baselines on the root elemental graph (layer 0).
+
+    mode: "post" visits everything and keeps in-range results; "in" only
+    traverses in-range neighbors. The two entries are the range's
+    midpoint and ``n // 2``, as in ``repro`` (a duplicate when they
+    coincide). The ``nbr_fn`` is a layer-0 row gather, so only
+    ``config.dist_impl`` picks a kernel (gather_dist on the card).
+    """
+    if mode not in ("post", "in"):
+        raise ValueError(f"search_filtered: unknown mode {mode!r}")
+    config = config or SearchConfig()
+    nbrs = storage_mod.decode_neighbors(nbrs)
+    n = storage_mod.table_n(vectors)
+    L = L.to(torch.int32)
+    R = R.to(torch.int32)
+    mid = torch.div(L + R, 2, rounding_mode="floor").clamp(0, n - 1)
+    entries = torch.stack([mid, torch.full_like(mid, n // 2)], dim=1)
+
+    def filt(ids):
+        return (ids >= L[:, None]) & (ids <= R[:, None])
+
+    expand_width = effective_expand_width(config.expand_width, config.ef)
+    Lw = tile_frontier(L, expand_width)
+    Rw = tile_frontier(R, expand_width)
+
+    def nbr_fn(u):
+        row = nbrs[u.clamp(0, n - 1), 0, :]
+        ok = (row >= 0) & (u >= 0)[:, None]
+        if mode == "in":
+            ok = ok & (row >= Lw[:, None]) & (row <= Rw[:, None])
+        return torch.where(ok, row, -1)
+
+    return beam_search(vectors, queries, entries, nbr_fn, k=k, config=config,
+                       result_filter_fn=filt)

@@ -1,10 +1,12 @@
 """Implicit segment-tree math for iRangeGraph (port of
-``repro/core/segment_tree.py:26-80``).
+``repro/core/segment_tree.py:26-125``).
 
 The tree is a perfect binary tree over the padded rank domain
 ``[0, 2**logn)``. Objects carry ids equal to their attribute rank; layer 0
 is the root (one segment of length ``2**logn``) and layer ``logn`` the
-leaves. Everything is integer math on int32 tensors (or Python ints).
+leaves. Everything is integer math on int32 tensors (or Python ints);
+the baselines' range helpers (:func:`decompose_range`,
+:func:`covering_segment`) are plain Python int recursion on the host.
 """
 from __future__ import annotations
 
@@ -12,7 +14,8 @@ import math
 
 import torch
 
-__all__ = ["num_layers", "seg_bounds", "scan_mask"]
+__all__ = ["num_layers", "seg_bounds", "scan_mask", "decompose_range",
+           "covering_segment"]
 
 
 def num_layers(n: int) -> int:
@@ -53,3 +56,39 @@ def scan_mask(u, L, R, logn, *, skip_layers: bool = True):
     skip = (child_lo == inter_lo) & (child_hi == inter_hi)
     skip[logn] = False  # leaves have no child
     return reachable & ~skip
+
+
+def decompose_range(L: int, R: int, logn: int):
+    """Classic segment-tree decomposition of [L, R] (inclusive): a list of
+    ``(lay, lo, hi)`` disjoint segments whose union is exactly [L, R], at
+    most ``2 * logn`` of them (the BasicSearch baseline's segments)."""
+    out = []
+
+    def rec(lay, lo, hi):
+        if hi < L or lo > R:
+            return
+        if L <= lo and hi <= R:
+            out.append((lay, lo, hi))
+            return
+        mid = (lo + hi) // 2
+        rec(lay + 1, lo, mid)
+        rec(lay + 1, mid + 1, hi)
+
+    rec(0, 0, (1 << logn) - 1)
+    return out
+
+
+def covering_segment(L: int, R: int, logn: int):
+    """Smallest single segment covering [L, R] (the SuperPostfiltering
+    baseline's): ``(lay, lo, hi)`` of the deepest tree node whose segment
+    contains the whole query range."""
+    lay, lo, hi = 0, 0, (1 << logn) - 1
+    while lay < logn:
+        mid = (lo + hi) // 2
+        if R <= mid:
+            lay, hi = lay + 1, mid
+        elif L > mid:
+            lay, lo = lay + 1, mid + 1
+        else:
+            break
+    return lay, lo, hi

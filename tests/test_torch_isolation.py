@@ -80,6 +80,8 @@ def test_import_with_reference_and_codec_packages_blocked():
         "from repro_torch.launch import serve as launch_serve\n"
         "from repro_torch.sharding import partitioning\n"
         "import repro_torch.bench.roofline, repro_torch.bench.buildpath\n"
+        "import repro_torch.bench.run, repro_torch.bench.fig2_qps_recall\n"
+        "from repro_torch.core import baselines, multiattr\n"
         "from repro_torch.core import rng\n"
         "from repro_torch.kernels import distance\n"
         "print('ok')\n"
