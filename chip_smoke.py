@@ -33,7 +33,11 @@ the full-size run, one card). It
      kernel of each; fails unless each method's recall is within 0.01 of
      its plain run, Pre-filtering's ids equal ``brute_force``'s, and
      gather_dist launched on every filtered search, edge_select on every
-     multi-attribute search and the prune on the Oracle's builds;
+     multi-attribute search and the prune on the Oracle's builds; in each
+     multi-attribute mode it also records every edge_select call of one
+     more search, fails unless each call's ids equal the plain version's,
+     and times the middle call by device time with L2 cold beside its
+     bound and its two-round-trip floor (``multiattr_edges``);
   5. holds every kernel against its plain version on the card at the main
      path's shapes (integers equal; distances within 1e-5 of the magnitude
      of their terms, ``‖q‖² + ‖x‖²``, since both sum d products in another
@@ -41,7 +45,9 @@ the full-size run, one card). It
      ``|alpha*cc - du| <= 1e-5*du``, in under 0.1% of rows; the bound
      counts what the inputs need) and times kernel, plain version and
      bound (gather_dist, edge_select and the hop by device time with L2
-     cold, ``device_ms``; the others with CUDA events);
+     cold, ``device_ms``, edge_select also beside the latency floor of its
+     two dependent round trips, ``edge_floor_ms``; the others with CUDA
+     events);
   6. drives the codec path with every count at 0: re-encodes the 1M index
      with ``astype_storage`` to bf16, f16 (both with "auto" ids), int8 and
      PQ (both with split ids; PQ with its int8 rerank sidecar), printing
@@ -95,6 +101,15 @@ the full-size run, one card). It
      of device time, the top 8 kernels); and gather_dist and
      the hop on the lm index at the served batch's shapes (B = 64, d =
      1,024), as in step 5;
+  11b. runs ``bench/roofline.py`` at its default shape with every count
+     at 0, then holds pairwise_dist against its plain version at the
+     roofline's shape and at 1,000 x 1M in f32 (within DIST_RTOL of its
+     terms), bf16 and f16 (``kernels/distance.py::half_gate``: against the
+     plain version and against the exact result, the plain version held
+     to the second part too; the old one-bf16-ulp gate printed as a
+     count), with the library call's time beside each
+     (``pairwise_library``); then the prune's codec bodies and
+     ``bench/buildpath.py``;
   12. prints one JSON line of kernel records (each codec layout as e.g.
      ``gather_dist[int8]``; flash_attention with its launches on the lm
      serve path) and, last, the device line.
@@ -129,7 +144,8 @@ SLEEP_CYCLES = 1e8        # a head start for the host: ~50 ms at 1.98 GHz
 # more slowly than the card runs
 SEARCH_KERNEL_KEYS = ("timed_by", "event_ms", "host_us", "distinct_rows",
                       "minus1_share", "composed_identical",
-                      "edge_ids_needed", "edge_ids_in_blocks", "shape")
+                      "edge_ids_needed", "edge_ids_in_blocks", "floor_ms",
+                      "shape")
 # the prune's near-tie rule (a keep decision within 1e-5 of du, in under
 # 0.1% of rows) is repro_torch/bench/common.py::prune_parity
 # The search quality gate: recall@10 >= MIN_RECALL. make_workload draws
@@ -361,6 +377,64 @@ def edge_positions_needed(torch, nbrs, us, L, R, logn, out):
     return int(torch.where(us >= 0, needed, 0).sum())
 
 
+def edge_bound(torch, nbrs, us, L, R, logn, want) -> tuple[float, str,
+                                                          int]:
+    """edge_select's bound on a frontier: each row's (u, L, R), the edge
+    ids its selection must read (``edge_positions_needed``) and its m_out
+    outputs, once each. Returns (ms, bound_by, ids needed)."""
+    F, m_out = want.shape
+    need = edge_positions_needed(torch, nbrs, us, L, R, logn, want)
+    ms, by = bound_ms(3 * F * 4 + need * 4 + F * m_out * 4, 0.0)
+    return ms, by, need
+
+
+def edge_floor_ms(torch, nbrs, us):
+    """Device ms (L2 cold, ``device_ms``) of edge_select's latency floor on
+    a frontier: ``csrc/edge_select.cu``'s probe, the kernel's CTAs and its
+    two dependent round trips (each row's u, then u's first 32 edge ids)
+    with no selection. None where the tree's library has no probe."""
+    import ctypes
+
+    from repro_torch.kernels import _build
+
+    f = getattr(_build.library("edge_select"), "rt_edge_floor", None)
+    if f is None:
+        return None
+    f.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 3 \
+        + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+    F, (n, layers, m) = us.shape[0], nbrs.shape
+    dev = us.device
+    sums = torch.empty((F,), dtype=torch.int32, device=dev)
+
+    def call(i):
+        _build.check(f(nbrs.data_ptr(), us.data_ptr(), sums.data_ptr(), F, n,
+                       layers * m, _build.stream_of(dev)),
+                     "edge_select", "edge_floor")
+
+    return device_ms(torch, call, "edge_floor_kernel")[0]
+
+
+def pairwise_library(torch, q, x):
+    """(call(i), what it is) of the one PyTorch call timed as
+    pairwise_dist's library_ms (the port never calls it): f32, cuBLAS
+    SGEMM of q @ x.T (TF32 off); bf16 / f16, the same product with f32
+    output, ``torch.mm(q, x.T, out_dtype=torch.float32)``, or, where this
+    torch rejects ``out_dtype``, the 16-bit-output product. Either is the
+    product alone, without the norms: a lower bound on any library
+    version of the function."""
+    xt = x.T
+    if q.dtype == torch.float32:
+        return (lambda i: torch.mm(q, xt)), "torch.mm f32 (SGEMM, TF32 off)"
+    try:
+        torch.mm(q[:1], xt[:, :1], out_dtype=torch.float32)
+    except (TypeError, RuntimeError):
+        return ((lambda i: torch.mm(q, xt)),
+                "torch.mm 16-bit output (out_dtype rejected by this torch)")
+    return ((lambda i: torch.mm(q, xt, out_dtype=torch.float32)),
+            "torch.mm out_dtype=float32")
+
+
 def cross_cluster_share(torch, index, lab) -> list:
     """Per layer, the share of its edges that join two clusters (``lab``:
     the cluster of each rank, on the index's device)."""
@@ -469,10 +543,13 @@ CODEC_TPU = {
             "pq": "hop.py:223"},
     "prune": "prune.py:95",   # the codec body, :95-105 (set-up :207-219)
 }
-# what pairwise_dist's library_ms times (the port never calls it)
-PAIRWISE_LIBRARY = ("cuBLAS SGEMM of q @ x.T alone (torch.mm, TF32 off): the "
-                    "product at the function's heart, without the norms; a "
-                    "lower bound on any library version")
+# what pairwise_dist's library_ms times (the port never calls it;
+# pairwise_library): each record names its call under "library"
+PAIRWISE_LIBRARY = ("the product q @ x.T alone, without the norms: f32 "
+                    "cuBLAS SGEMM (torch.mm, TF32 off); bf16/f16 torch.mm "
+                    "with out_dtype=torch.float32 (16-bit in, f32 out), or "
+                    "the 16-bit-output product where torch rejects "
+                    "out_dtype; a lower bound on any library version")
 
 
 def stored_row_bytes(table) -> tuple[int, int]:
@@ -797,6 +874,8 @@ def kernel_entry(name, rec, cu, tpu, launches, library_ms=None) -> dict:
           f"{rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms "
           f"({rec['bound_by']})"
           + ("" if library_ms is None else f", library {library_ms:.4f} ms")
+          + ("" if rec.get("floor_ms") is None else
+             f", two-round-trip floor {rec['floor_ms']:.4f} ms")
           + f", max_abs_err {rec['max_abs_err']:.3g}"
           + (f", rows differing {rec['rows_differ']} (near ties "
              f"{rec['near_ties']})" if "rows_differ" in rec else "")
@@ -1492,14 +1571,21 @@ def pairwise_checks(torch, q_roof, x_roof, q_1m, x_1m) -> dict:
     """Kernel 5 against its plain version at the roofline's shape and at
     the 1M path's ground-truth shape (1,000 queries against the 1M index's
     f32 vectors: a 4 GB output), for f32, bf16 and f16 inputs, l2 and ip.
-    f32 within DIST_RTOL of ``‖q‖² + ‖x‖²``, the half types within
-    ``bf16_tol``; ms, plain ms, the bound and, for f32 l2, cuBLAS SGEMM of
-    the product alone as library_ms. The bound follows the kernel's
-    units: f32 inputs run the product as 3xTF32, 3 x 2*Bq*N*D at 495
-    TFLOP/s; bf16 and f16 inputs as one product, 2*Bq*N*D at 989; or the
-    bytes (inputs read once, the f32 output written once), the larger."""
+    f32 within DIST_RTOL of ``‖q‖² + ‖x‖²``. The half types by
+    ``kernels/distance.py::half_gate``: within DIST_RTOL of the terms of
+    the plain version, and within the order-free bound of an f32 sum of
+    exact products of the exact result (f64), the kernel and the plain
+    version alike, with 0 outputs over each part. The old half-type gate
+    (one bf16 ulp plus 1e-5 of the plain version's output) holds only in
+    the plain version's own sum order where a dot cancels to near 0, so it
+    is printed as a count (``ulp_over``), not gated. ms, plain ms, the
+    bound and the library call's ms (``pairwise_library``). The bound
+    follows the kernel's units: f32 inputs run the product as 3xTF32, 3 x
+    2*Bq*N*D at 495 TFLOP/s; bf16 and f16 inputs as one product, 2*Bq*N*D
+    at 989; or the bytes (inputs read once, the f32 output written once),
+    the larger."""
     from repro_torch.kernels import ref
-    from repro_torch.kernels.distance import pairwise_dist_cuda
+    from repro_torch.kernels.distance import half_gate, pairwise_dist_cuda
 
     out = {}
     for where, (q0, x0) in (("roofline", (q_roof, x_roof)),
@@ -1518,14 +1604,22 @@ def pairwise_checks(torch, q_roof, x_roof, q_1m, x_1m) -> dict:
                 want = ref.pairwise_dist(q, x, metric=metric)
                 err = (got - want).abs()
                 rel_ok = bool((err <= DIST_RTOL * (qq + xx)).all())
+                max_err = float(err.max())
+                rec = dict(max_abs_err=max_err, within_f32_rule=rel_ok,
+                           library_ms=None)
                 if dtype == torch.float32:
                     good = rel_ok
                 else:
-                    good = bool((err <= bf16_tol(torch, got, want)).all())
-                max_err = float(err.max())
+                    rec["ulp_over"] = int((err > bf16_tol(torch, got, want))
+                                          .sum())
+                    rec["gate"] = half_gate(got, q, x, metric=metric,
+                                            plain=want)
+                    rec["plain_gate"] = half_gate(want, q, x, metric=metric)
+                    good = (rec["gate"]["over_plain"] == 0
+                            and rec["gate"]["over_exact"] == 0
+                            and rec["plain_gate"]["over_exact"] == 0)
+                rec["ok"] = good
                 del got, want, err
-                rec = dict(ok=good, max_abs_err=max_err,
-                           within_f32_rule=rel_ok, library_ms=None)
                 timed = metric == "l2" or not big
                 if timed:
                     Bq, D = q.shape
@@ -1537,11 +1631,9 @@ def pairwise_checks(torch, q_roof, x_roof, q_1m, x_1m) -> dict:
                         torch, lambda i: ref.pairwise_dist(q, x,
                                                            metric=metric),
                         iters=3 if big else 10, warmup=1)
-                    if dtype == torch.float32:
-                        xt = x.T
-                        rec["library_ms"] = time_ms(
-                            torch, lambda i: torch.mm(q, xt), iters=it,
-                            warmup=2)
+                    lib, rec["library"] = pairwise_library(torch, q, x)
+                    rec["library_ms"] = time_ms(torch, lib, iters=it,
+                                                warmup=2)
                     if dtype == torch.float32:
                         flops, peak = 3 * 2.0 * Bq * N * D, PEAK_TF32_FLOPS
                     else:
@@ -1552,16 +1644,26 @@ def pairwise_checks(torch, q_roof, x_roof, q_1m, x_1m) -> dict:
                 rec["shape"] = (f"Bq={q.shape[0]} N={x.shape[0]} "
                                 f"d={q.shape[1]} {dt} {metric}")
                 out[name] = rec
+                gate = ""
+                if "gate" in rec:
+                    gk, gp = rec["gate"], rec["plain_gate"]
+                    gate = (f", half_gate kernel: {gk['over_plain']} over "
+                            f"vs plain (worst {gk['margin_plain']:.3g}), "
+                            f"{gk['over_exact']} over vs exact (worst "
+                            f"{gk['margin_exact']:.3g}); plain: "
+                            f"{gp['over_exact']} over vs exact (worst "
+                            f"{gp['margin_exact']:.3g}); outputs over one "
+                            f"bf16 ulp + 1e-5 of plain {rec['ulp_over']} "
+                            "(a count, no gate)")
                 print(f"kernel pairwise_dist[{name}] [{rec['shape']}]: "
                       + (f"{rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
                          f"ms, bound {rec['bound_ms']:.4f} ms "
-                         f"({rec['bound_by']})"
-                         + ("" if rec["library_ms"] is None else
-                            f", SGEMM alone {rec['library_ms']:.4f} ms")
-                         + ", " if timed else "")
+                         f"({rec['bound_by']}), library "
+                         f"{rec['library_ms']:.4f} ms ({rec['library']}), "
+                         if timed else "")
                       + f"max_abs_err {max_err:.3g}, within 1e-5 of its "
-                      f"terms {rel_ok}" + ("" if good else "  DISAGREES"),
-                      flush=True)
+                      f"terms {rel_ok}{gate}"
+                      + ("" if good else "  DISAGREES"), flush=True)
             del q, x, qq, xx
             torch.cuda.empty_cache()
     return out
@@ -1605,6 +1707,56 @@ def buildpath_phase(torch) -> tuple[dict, dict, bool]:
         print("buildpath: the prune backends diverged", flush=True)
     return {"prune_step": rows, "build_levels": e2e,
             "agreement": agree}, counts, ok
+
+
+def multiattr_edges(torch, fn, cfg) -> dict:
+    """edge_select as a multi-attribute search launches it: ``fn(cfg)``
+    run once more with ``ops.select_edges`` wrapped to record every call;
+    every call's ids held against the plain version on its arguments
+    (``ok``: bit-identical), and the middle call timed alone by device time
+    with L2 cold beside its bound and the two-round-trip floor."""
+    from repro_torch.core import storage
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels.edge_select import select_edges_cuda
+
+    calls = []
+    real = ops.select_edges
+
+    def spy(nbrs, us, L, R, **kw):
+        got = real(nbrs, us, L, R, **kw)
+        calls.append((nbrs, us.clone(), L, R, kw, got))
+        return got
+
+    ops.select_edges = spy
+    try:
+        fn(cfg)
+    finally:
+        ops.select_edges = real
+    same = 0
+    for nb, us, L, R, kw, got in calls:
+        want = ref.select_edges(storage.decode_neighbors(nb), us, L, R,
+                                logn=kw["logn"], m_out=kw["m_out"],
+                                skip_layers=kw.get("skip_layers", True))
+        same += bool(torch.equal(got, want))
+    nb, us, L, R, kw, got = calls[len(calls) // 2]
+    nb = storage.decode_neighbors(nb)
+    args = dict(logn=kw["logn"], m_out=kw["m_out"],
+                skip_layers=kw.get("skip_layers", True))
+
+    def call(i):
+        return select_edges_cuda(nb, us, L, R, **args)
+
+    ms, how = device_ms(torch, call, "edge_select_kernel")
+    bms, _, need = edge_bound(torch, nb, us, L, R, kw["logn"], got)
+    out = {"calls": len(calls), "calls_identical": same,
+           "ok": same == len(calls) and len(calls) > 0, "ms": ms,
+           "timed_by": how, "bound_ms": bms, "edge_ids_needed": need,
+           "floor_ms": edge_floor_ms(torch, nb, us),
+           "active_rows": int((us >= 0).sum()),
+           "shape": f"F={us.shape[0]} K={nb.shape[1] * nb.shape[2]} "
+                    f"m_out={kw['m_out']}"}
+    del calls
+    return out
 
 
 def baselines_phase(torch, index, queries, L, R, gt) -> tuple[dict, bool]:
@@ -1703,6 +1855,10 @@ def baselines_phase(torch, index, queries, L, R, gt) -> tuple[dict, bool]:
         out[name] = rec
         never = [k for k in BASE_KERNELS[name] if not counts.get(k)]
         good = abs(r - rp) <= 0.01 and not never
+        if name.startswith("multiattr"):
+            rec["recall_equals_plain"] = r == rp
+            rec["edge_select"] = multiattr_edges(torch, fn, cfg)
+            good &= rec["edge_select"]["ok"]
         print(f"baselines[{name} ef={BASE_EF}]: {nq} queries in "
               f"{secs:.3f} s = {nq / secs:.1f} QPS; recall@10 {r:.4f} "
               f"(all-plain {rp:.4f}, {nq / psecs:.1f} QPS); mean hops "
@@ -1711,6 +1867,17 @@ def baselines_phase(torch, index, queries, L, R, gt) -> tuple[dict, bool]:
               + ("" if build_s is None else
                  f"; builds {build_s:.1f} s for 2 ranges of {span:,}")
               + ("" if good else "  FAILED"), flush=True)
+        if "edge_select" in rec:
+            e = rec["edge_select"]
+            print(f"baselines[{name}] edge_select [{e['shape']}, "
+                  f"{e['active_rows']} rows active in the middle call]: "
+                  f"{e['calls_identical']} of {e['calls']} calls' ids "
+                  f"identical to the plain version's; middle call device "
+                  f"{e['ms']:.4f} ms (L2 cold, by {e['timed_by']}), bound "
+                  f"{e['bound_ms']:.4f} ms, two-round-trip floor "
+                  f"{e['floor_ms']:.4f} ms; recall equal to all-plain: "
+                  f"{rec['recall_equals_plain']}"
+                  + ("" if e["ok"] else "  DISAGREES"), flush=True)
         if never:
             print(f"baselines[{name}]: kernels never launched: {never}",
                   flush=True)
@@ -1947,12 +2114,11 @@ def run(args):
     kms = time_ms(torch, select)
     pms = time_ms(torch, lambda i: ref.select_edges(
         nbrs, us, Lw, Rw, logn=logn, m_out=m_out), iters=5)
-    need = edge_positions_needed(torch, nbrs, us, Lw, Rw, logn, want)
-    bms, by = bound_ms(3 * F * 4 + need * 4 + F * m_out * 4, 0.0)
+    bms, by, need = edge_bound(torch, nbrs, us, Lw, Rw, logn, want)
     records["select_edges"] = dict(
         ok=err == 0, max_abs_err=float(err), ms=dms, timed_by=how,
         event_ms=kms, host_us=hus, plain_ms=pms, bound_ms=bms, bound_by=by,
-        edge_ids_needed=need,
+        floor_ms=edge_floor_ms(torch, nbrs, us), edge_ids_needed=need,
         shape=f"F={F} K={nbrs.shape[1] * nbrs.shape[2]} m_out={m_out}")
 
     # gather_dist at [B, W*m_out] ids (the hop's edges), and the fused hop
@@ -2029,6 +2195,10 @@ def run(args):
             meth: r["launches"].get(name, 0)
             for meth, r in base_recs.items()
             if isinstance(r, dict) and "launches" in r}
+        if name == "select_edges":
+            kernels[-1]["multiattr"] = {
+                meth: r["edge_select"] for meth, r in base_recs.items()
+                if isinstance(r, dict) and "edge_select" in r}
         if "rows_differ" in rec:
             kernels[-1].update(rows_differ=rec["rows_differ"],
                                near_ties=rec["near_ties"],
@@ -2199,6 +2369,16 @@ def run(args):
     kernels[-1]["at_1M"] = {k: dist["1M f32 l2"][k] for k in
                             ("ms", "plain_ms", "bound_ms", "bound_by",
                              "library_ms", "max_abs_err", "shape")}
+    kernels[-1]["body"] = {"f32": "tf32x3", "bf16": "wgmma", "f16": "wgmma"}
+    for tag in ("bf16", "f16"):
+        kernels[-1][f"at_1M_{tag}"] = {
+            k: dist[f"1M {tag} l2"][k] for k in
+            ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library", "max_abs_err", "shape")}
+    kernels[-1]["half_gate"] = {
+        name: {"kernel": r["gate"], "plain": r["plain_gate"],
+               "ulp_over": r["ulp_over"]}
+        for name, r in dist.items() if "gate" in r}
     kernels[-1]["max_abs_err_by_case"] = {
         name: r["max_abs_err"] for name, r in dist.items()}
     print(f"phase[roofline + pairwise_dist]: "

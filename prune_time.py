@@ -1,12 +1,12 @@
 #!/usr/bin/env python3
 """Time the prune, flash-attention, pairwise-distance, gather-distance and
-hop kernels of one source tree at the paths' shapes.
+hop kernels and edge_select of one source tree at the paths' shapes.
 
 ``python3 prune_time.py <src dir> [parts]`` imports ``repro_torch`` from
 ``<src dir>`` (a checkout's ``src``), builds its kernels, and times them
 on the card; ``parts`` is a comma-separated subset of ``prune,
-prune_designs,flash,pairwise,pairwise_exact,gather,hop,search``
-(default: all but prune_designs, gather, hop and search).
+prune_designs,flash,pairwise,pairwise_exact,gather,hop,edge,search``
+(default: all but prune_designs, gather, hop, edge and search).
 
   * prune: n = 1,000,000 random f32 rows of d = 128, B = 16,384 nodes, C =
     80 candidates drawn from a 4,096-row segment (a search level) and C =
@@ -30,14 +30,18 @@ prune_designs,flash,pairwise,pairwise_exact,gather,hop,search``
     32, and B = 1, S = 4,096. Reports the largest |difference| from the
     plain version.
   * pairwise: l2 at the roofline's shape (Bq = 64, N = 100,000, d = 128,
-    f32) and at 1,000 x 1,000,000 (d = 128) in f32 and bf16. Reports the
-    largest |difference| from the plain version over ‖q‖² + ‖x‖².
+    f32) and at 1,000 x 1,000,000 (d = 128) in f32, bf16 and f16, with
+    the library call beside each (``chip_smoke.py::pairwise_library``:
+    SGEMM for f32, the 16-bit product with f32 output for the half
+    types). Reports the largest |difference| from the plain version over
+    ‖q‖² + ‖x‖² and a digest of the output.
   * pairwise_exact (not timed): ip of the 1,000 queries against the
     131,072 rows of ``vector_dataset`` (64 clusters, d = 128, seed 0) in
     f32, bf16 and f16; the kernel and the plain version each against the
-    exact dot (f64), and how many outputs of each fall outside the card
-    gate's half-type tolerance (one bf16 ulp plus 1e-5) of the exact
-    dot, and of each other.
+    exact dot (f64): how many outputs of each fall outside one bf16 ulp
+    plus 1e-5 of the exact dot, and of each other (the half types' old
+    gate, a count), and, for bf16 and f16, ``kernels/distance.py::
+    half_gate`` of each (outputs over and worst margins).
 
   * gather: gather_dist on seeded synthetic inputs at the shapes the main
     path launches it (``GATHER_SHAPES``): one step of the build's sibling
@@ -53,6 +57,12 @@ prune_designs,flash,pairwise,pairwise_exact,gather,hop,search``
     rows stay in L2 there), the wrapper's host µs per call, the bound, the
     largest |difference| from the plain version, and a digest of the
     outputs: equal digests on two trees, bit-identical outputs.
+  * edge: edge_select at the search's frontier (F = 4,000 rows of K = 336
+    edge ids, n = 2^20) and the server's (F = 256, n = 131,072), drawn as
+    for the hop: device ms with L2 cold, host µs, the bound, the latency
+    floor of two dependent round trips (``chip_smoke.py::
+    edge_floor_ms``; None on a tree without the probe), whether the ids
+    equal the plain version's, and a digest.
   * search (not a kernel): the search QPS of chip_smoke.py's 1M cell
     (``search_part``), the index built by the first run and loaded from
     ``build/`` by every run, so that two trees search one graph.
@@ -74,7 +84,7 @@ import torch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 
 PARTS = ("prune", "prune_designs", "flash", "pairwise", "pairwise_exact",
-         "gather", "hop", "search")
+         "gather", "hop", "edge", "search")
 LAYOUT_F32 = ("f32",)
 LAYOUTS_ALL = ("f32", "bf16", "f16", "int8", "pq")
 DEFAULT_PARTS = ("prune", "flash", "pairwise", "pairwise_exact")
@@ -220,6 +230,12 @@ GATHER_SHAPES = (
 HOP_SHAPES = (
     ("frontier", 1 << 20, 128, 1000, LAYOUTS_ALL),
     ("server", 131072, 1024, 64, LAYOUT_F32),
+)
+# edge_select: name, n, queries B (W = 4 frontier rows each, F = 4 B; m =
+# m_out = 16; L2 cold), drawn as the hop's
+EDGE_SHAPES = (
+    ("frontier", 1 << 20, 1000),
+    ("server", 131072, 64),
 )
 
 
@@ -408,6 +424,35 @@ def hop_part(out, dev, g):
         del q, nbrs, u, Lw, Rw, vis0, exp_ok
 
 
+def edge_part(out, dev, g):
+    import chip_smoke as smoke
+    from repro_torch.kernels.edge_select import select_edges_cuda
+
+    for name, n, B in EDGE_SHAPES:
+        _, nbrs, u, Lw, Rw, _, _, logn, m_out = hop_problem(dev, g, n, 8, B)
+        us = u.reshape(-1).contiguous()
+        tag = f"edge_{name}"
+        got = select_edges_cuda(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
+        want = ref.select_edges(nbrs, us, Lw, Rw, logn=logn, m_out=m_out)
+        out[f"{tag}_same_as_plain"] = torch.equal(got, want)
+        out[f"{tag}_digest"] = digest(got)
+
+        def call(i):
+            return select_edges_cuda(nbrs, us, Lw, Rw, logn=logn,
+                                     m_out=m_out)
+
+        out[f"{tag}_ms"], out[f"{tag}_timed_by"] = smoke.device_ms(
+            torch, call, "edge_select_kernel")
+        out[f"{tag}_host_us"] = smoke.host_us(torch, call)
+        out[f"{tag}_bound_ms"] = smoke.edge_bound(torch, nbrs, us, Lw, Rw,
+                                                  logn, want)[0]
+        out[f"{tag}_floor_ms"] = smoke.edge_floor_ms(torch, nbrs, us)
+        out[f"{tag}_shape"] = (f"F={us.shape[0]} K="
+                               f"{nbrs.shape[1] * nbrs.shape[2]} "
+                               f"m_out={m_out}")
+        del nbrs, u, Lw, Rw, us, got, want
+
+
 SEARCH_REPEATS = 7
 SEARCH_INDEX = "search_index_1M.pt"  # under build/ beside this script
 
@@ -476,11 +521,13 @@ def flash_part(out, dev, g):
 
 
 def pairwise_part(out, dev, g):
+    import chip_smoke as smoke
     from repro_torch.kernels.distance import pairwise_dist_cuda
 
     for name, Bq, N, dt in (("dist_roofline_f32", 64, 100_000, "float32"),
                             ("dist_1M_f32", 1000, 1_000_000, "float32"),
-                            ("dist_1M_bf16", 1000, 1_000_000, "bfloat16")):
+                            ("dist_1M_bf16", 1000, 1_000_000, "bfloat16"),
+                            ("dist_1M_f16", 1000, 1_000_000, "float16")):
         dtype = getattr(torch, dt)
         q = torch.randn((Bq, 128), generator=g, device=dev).to(dtype)
         x = torch.randn((N, 128), generator=g, device=dev).to(dtype)
@@ -490,16 +537,22 @@ def pairwise_part(out, dev, g):
         terms = (qf * qf).sum(1, keepdim=True) + (xf * xf).sum(1)[None]
         out[f"{name}_max_rel_err"] = float(((got - want).abs()
                                             / terms).max())
+        out[f"{name}_digest"] = digest(got)
         del got, want, terms, qf, xf
+        it = 5 if N >= 1_000_000 else 20
         out[f"{name}_ms"] = time_ms(lambda: pairwise_dist_cuda(q, x),
-                                    iters=5 if N >= 1_000_000 else 20)
+                                    iters=it)
+        lib, what = smoke.pairwise_library(torch, q, x)
+        out[f"{name}_library_ms"] = time_ms(lambda: lib(0), iters=it)
+        out[f"{name}_library"] = what
         del q, x
         torch.cuda.empty_cache()
 
 
 def bf16_tol(got, want):
-    """chip_smoke.py's half-type gate: one bf16 ulp at the larger
-    magnitude, plus 1e-5."""
+    """One bf16 ulp at the larger magnitude, plus 1e-5: the half types'
+    card gate before it was stated against the exact result (a count
+    only)."""
     _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
     return torch.ldexp(torch.ones_like(e, dtype=torch.float32), e - 8) \
         + 1e-5
@@ -507,7 +560,10 @@ def bf16_tol(got, want):
 
 def pairwise_exact_part(out, dev, g):
     from repro_torch.data import vector_dataset
+    from repro_torch.kernels import distance
     from repro_torch.kernels.distance import pairwise_dist_cuda
+
+    half_gate = getattr(distance, "half_gate", None)  # None on a parent
 
     x, _, q, _ = vector_dataset(131072, 128, seed=0, n_clusters=64,
                                 attr_kind="uniform", queries=1000,
@@ -526,11 +582,17 @@ def pairwise_exact_part(out, dev, g):
         out[f"{tag}_plain_max_err"] = float((plain.double() - exact)
                                             .abs().max())
         for name, got in (("kernel", kern), ("plain", plain)):
-            out[f"{tag}_{name}_over_gate"] = int(
+            out[f"{tag}_{name}_over_ulp"] = int(
                 ((got - ex).abs() > bf16_tol(got, ex)).sum())
-        out[f"{tag}_kernel_vs_plain_over_gate"] = int(
+        out[f"{tag}_kernel_vs_plain_over_ulp"] = int(
             ((kern - plain).abs() > bf16_tol(kern, plain)).sum())
-        del exact, ex, kern, plain
+        del exact, ex
+        if dt != "float32" and half_gate is not None:
+            out[f"{tag}_kernel_half_gate"] = half_gate(
+                -kern, qd, xd, metric="ip", plain=-plain)
+            out[f"{tag}_plain_half_gate"] = half_gate(-plain, qd, xd,
+                                                      metric="ip")
+        del kern, plain
     out["exact_ip_max_abs_dot"] = float((q0.double() @ x0.double().T)
                                         .abs().max())
 

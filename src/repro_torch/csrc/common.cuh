@@ -12,10 +12,11 @@
 //     DMA + in-VMEM decode + diagonal-extract MXU product; gather_distance.cu
 //     and hop.cu both call it, so the fused and the composed hop decode and
 //     sum in the same order;
-//   * warp_select: Algorithm 1's edge improvisation for one frontier node
-//     by one warp (the semantics of kernels/ref.py::select_edges), over the
-//     positions of the layers it scans (warp_scan_layers), read from global
-//     memory (edge_select.cu) or from shared memory (hop.cu).
+//   * warp_select_staged: Algorithm 1's edge improvisation for one
+//     frontier node by one warp (the semantics of kernels/ref.py::
+//     select_edges): the ids of the layers it scans (warp_scan_layers)
+//     copied into shared memory at once, then selected there
+//     (warp_select); edge_select.cu and hop.cu both call it.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -492,27 +493,56 @@ __device__ __forceinline__ void warp_select(Fetch fetch, int npos, int u,
   __syncwarp();
 }
 
+// Whether the scanned layers' ids can be copied 16 bytes at a time: m a
+// multiple of 4 (so every layer and every K-int shared slice starts on 16
+// bytes) and the table 16-byte aligned. Host side.
+inline bool edge_copy_vec(const int* nbrs, int m) {
+  return m % 4 == 0 && reinterpret_cast<uintptr_t>(nbrs) % 16 == 0;
+}
+
 // Algorithm 1 edge improvisation for frontier node `us` and inclusive rank
-// range [L, R], by one warp, reading u's packed edge block of the
-// int32[n, layers, m] table in global memory, 32 ids a step.
-__device__ __forceinline__ void warp_select_edges(
-    const int* __restrict__ nbrs, int n, int layers, int m, int logn, int us,
-    int L, int R, bool skip_layers, int m_out, int* out) {
-  if (us < 0) {  // uniform over the warp
-    for (int i = threadIdx.x & 31; i < m_out; i += 32) out[i] = -1;
-    __syncwarp();
-    return;
+// range [L, R], by one warp, from u's packed edge block of the int32[n,
+// layers, m] table: finds the layers it scans (warp_scan_layers), copies
+// just those layers' ids into `eb` (shared memory, K = layers * m ints,
+// 16-byte aligned when `vec`: edge_copy_vec) by cp.async, all at once,
+// then runs the selection on shared memory (warp_select) into out[0 ..
+// m_out) (shared memory). `lw`: 32 ints of shared memory for the scanned
+// layers' indices. Two dependent round trips: the caller's (u, L, R), then
+// the ids. An inactive row (us < 0) scans no layer and gives m_out -1s.
+// hop.cu and edge_select.cu both call it, so the fused and the composed
+// hop select on one code path.
+__device__ __forceinline__ void warp_select_staged(
+    const int* __restrict__ nbrs, int n, int layers, int m, int logn,
+    bool skip_layers, bool vec, int us, int L, int R, int m_out, int* eb,
+    int* lw, int* out) {
+  const int lane = threadIdx.x & 31;
+  const unsigned lmask =
+      us >= 0 ? warp_scan_layers(us, L, R, layers, logn, skip_layers) : 0u;
+  const int nl = __popc(lmask);
+  if ((lmask >> lane) & 1u) lw[__popc(lmask & lanes_below(lane))] = lane;
+  __syncwarp();
+  const int* src =
+      nbrs + static_cast<size_t>(min(max(us, 0), n - 1)) * layers * m;
+  if (vec) {
+    const int m4 = m >> 2;
+    for (int i = lane; i < nl * m4; i += 32) {
+      const int li = i / m4, c = (i - li * m4) * 4;
+      copy16_async(eb + li * m + c, src + lw[li] * m + c);
+    }
+  } else {
+    for (int i = lane; i < nl * m; i += 32) {
+      const int li = i / m;
+      copy4_async(eb + i, src + lw[li] * m + (i - li * m));
+    }
   }
-  const unsigned lmask = warp_scan_layers(us, L, R, layers, logn,
-                                          skip_layers);
-  const int K = layers * m;
-  const int* blk = nbrs + static_cast<size_t>(min(us, n - 1)) * K;
+  copy_async_wait();
+  __syncwarp();
   warp_select(
       [&](int p, bool& scanned) {
-        scanned = (lmask >> (p / m)) & 1u;
-        return __ldg(blk + p);
+        scanned = true;
+        return eb[p];
       },
-      K, us, L, R, m_out, out);
+      nl * m, us, L, R, m_out, out);
 }
 
 }  // namespace rt

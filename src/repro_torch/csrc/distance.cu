@@ -3,179 +3,77 @@
 // Replaces the TPU kernel repro/kernels/distance.py::_dist_kernel (line
 // 26; pallas_call at line 79). Semantics: the port's kernels/ref.py::
 // pairwise_dist: q[Bq, D] x x[N, D] -> f32[Bq, N], l2 ``‖q‖² − 2q·x +
-// ‖x‖²`` or ip ``−q·x``, with f32, bf16 or f16 inputs. Two bodies, chosen
-// by dtype:
+// ‖x‖²`` or ip ``−q·x``, with f32, bf16 or f16 inputs. One kernel template
+// on the tensor cores, two bodies by input type:
 //
-// f32 inputs: the tensor cores, 3xTF32 (namespace tc). Bound on the H100:
-// 3 * 2*Bq*N*D flops at the TF32 peak (495 TFLOP/s) or the bytes (inputs
-// read once, 4*Bq*N written), the larger: 1.552 ms at 1,000 x 1M, d = 128
-// (operations), 0.0229 ms at the roofline's 64 x 100,000 (bytes). Design:
-// one warpgroup (128 threads) per block, three blocks to an SM (74.5 KB
-// of shared memory and 128 registers a thread each), persistent: block b
-// walks output tiles b, b + grid, ... of 64 x 128 (queries x rows of x),
-// neighbouring blocks on the same x rows at once so that they come from
-// L2 after the first read. D is walked in chunks of 32 values (128 bytes) a
-// row, the chunks of all of a block's tiles as one stream: 16-byte cp.async
-// copies (zero-filled outside Bq, N and D) keep the next chunk in flight in
-// a two-stage ring in the 128-byte swizzle; where D or a pointer is not
-// 16-byte aligned (e.g. d = 131), element loads fill the stage instead.
-// Each chunk has one pass over its values by all threads, which sums their
-// squares in f32 into the row norms and splits each value a into big =
-// cvt.rna.tf32(a), written over a, and small = a - big (exact in f32), in
-// a buffer laid out alike; then the tf32 wgmmas (m64n128k8) accumulate
-// big.big + big.small + small.big in f32. The dropped small.small and the
-// hardware's truncation of small to tf32 leave about 2^-21 of |a_i b_i| a
-// product, far inside 1e-5 of ‖q‖² + ‖x‖². One block's pass runs under
-// the others' wgmmas. After a tile's last chunk the epilogue writes (qq -
-// 2 dot) + xx (or -dot) straight from the accumulator, a quad of threads
-// 32 contiguous bytes of a row (streaming stores), while the next tile's
-// first chunk is already copying.
+// f32 inputs, "tf32x3". Bound on the H100: 3 * 2*Bq*N*D flops at the TF32
+// peak (495 TFLOP/s) or the bytes (inputs read once, 4*Bq*N written), the
+// larger: 1.552 ms at 1,000 x 1M, d = 128 (operations), 0.0229 ms at the
+// roofline's 64 x 100,000 (bytes).
+// bf16 / f16 inputs, "wgmma". Bound: 2*Bq*N*D at the 16-bit tensor peak
+// (989 TFLOP/s) or the bytes, the larger: 1.270 ms at 1,000 x 1M, d = 128,
+// set by the 4 GB f32 output, so the epilogue's store rate decides the
+// time.
 //
-// bf16 / f16 inputs: the CUDA cores (namespace simt), every dot one f32
-// FMA chain in k order -- the plain version's (cuBLAS's) order and
-// rounding, which the half types' card gate (one bf16 ulp plus 1e-5 of
-// the plain version's output) needs where -q.x cancels to near 0: a
-// bf16/f16 wgmma body, whose sums run in another order, was built and
-// differed there by up to 1.4e-4 (PERF.md, section 6). Bound: 2*Bq*N*D
-// at the 16-bit tensor peak (989 TFLOP/s) or the bytes, the larger (1.270
-// ms at 1,000 x 1M, by bytes); on the CUDA cores the f32 FMA rate (67
-// TFLOP/s) caps this body at 3.8 ms there. Design: one block of 256 threads per 64x64
-// output tile; K-tiles of 32 columns of q and x loaded with their rows'
-// lanes on consecutive addresses, widened to f32 and staged in shared
-// memory ([64][33], the pad keeps every access conflict-free); each thread
-// keeps a 4x4 register tile of dots (q rows ty + 16i, x rows tx + 16j)
-// and runs f32 FFMAs. The norm terms accumulate in the same K-loop, two
-// warps summing one staged row each.
+// Design: one warpgroup (128 threads) per block, as many blocks as the
+// card holds at once, persistent: block b walks output tiles b, b + grid,
+// ... of 64 x 128 (queries x rows of x). Tile t is query tile t % nqt of x
+// block t / nqt, so the query tiles of one x block (16 at Bq = 1,000) run
+// on neighbouring blocks at once: x comes from device memory once and from
+// L2 for the others. D is walked in chunks of 128 bytes a row (32 f32 or
+// 64 16-bit values), the chunks of all of a block's tiles as one stream:
+// 16-byte cp.async copies (zero-filled outside Bq, N and D) keep the next
+// chunk in flight in a two-stage ring in the 128-byte swizzle; where D or
+// a pointer does not allow 16-byte copies (e.g. d = 131), element loads
+// fill the stage instead. Each chunk has one pass over its values by all
+// threads, which sums their squares in f32 into the row norms (the half
+// types' products are exact in f32; their pass runs for l2 only) and,
+// for f32, splits each value a into big = cvt.rna.tf32(a), written over
+// a, and small = a - big (exact in f32), in a buffer laid out alike.
+// Then the wgmmas with f32 accumulation: f32 runs three tf32 products
+// (m64n128k8) big.big + big.small + small.big -- the dropped small.small
+// and the hardware's truncation of small to tf32 leave about 2^-21 of
+// |a_i b_i| a product, far inside 1e-5 of ‖q‖² + ‖x‖²; bf16 / f16 run one
+// m64n128k16 product, exact products summed in f32, held to the
+// half-type gate against the exact dot (kernels/distance.py::half_gate).
+// One block's pass runs under the others' wgmmas. After a tile's last
+// chunk the epilogue passes the accumulator through the ring stage the
+// wgmmas just read, so that each warp writes (qq - 2 dot) + xx (or -dot)
+// as whole 512-byte row segments with 16-byte streaming stores (the
+// accumulator's own layout gives a quad of threads 32 contiguous bytes of
+// a row, 8 rows a store), while the next tile's first chunk is already
+// copying.
 //
-// Nothing is padded or copied outside the kernels.
+// Nothing is padded or copied outside the kernel.
 #include "common.cuh"
 #include "hopper.cuh"
 
 #include <algorithm>
-
-namespace simt {
-
-
-constexpr int kTile = 64;     // output rows and columns per block
-constexpr int kK = 32;        // K columns per staged tile
-constexpr int kThreads = 256;
-constexpr int kPad = kK + 1;
-
-template <typename T>
-__device__ __forceinline__ float widen(T v);
-template <>
-__device__ __forceinline__ float widen<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <>
-__device__ __forceinline__ float widen<__half>(__half v) {
-  return __half2float(v);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-dist_kernel(const T* __restrict__ q, const T* __restrict__ x,
-            float* __restrict__ out, int Bq, int N, int D, int metric) {
-  __shared__ float qs[kTile][kPad];
-  __shared__ float xs[kTile][kPad];
-  __shared__ float qn[kTile];
-  __shared__ float xn[kTile];
-
-  const int t = threadIdx.x;
-  const int tx = t & 15, ty = t >> 4;
-  const int r0 = blockIdx.y * kTile;
-  const int c0 = blockIdx.x * kTile;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-  float nrm = 0.f;  // threads 0-63: ‖q row t‖²; 64-127: ‖x row t-64‖²
-
-  for (int k0 = 0; k0 < D; k0 += kK) {
-    // stage: element e = t + 256 s of each 64x32 tile is (row e/32, col
-    // e%32), so a warp reads 32 consecutive columns of one row
-#pragma unroll
-    for (int s = 0; s < kTile * kK / kThreads; ++s) {
-      const int e = t + s * kThreads;
-      const int row = e / kK, col = e % kK;
-      const int k = k0 + col;
-      const int qr = r0 + row, xr = c0 + row;
-      qs[row][col] = (qr < Bq && k < D)
-                         ? widen(q[static_cast<size_t>(qr) * D + k])
-                         : 0.f;
-      xs[row][col] = (xr < N && k < D)
-                         ? widen(x[static_cast<size_t>(xr) * D + k])
-                         : 0.f;
-    }
-    __syncthreads();
-    if (t < 2 * kTile) {  // warps 0-3: the norms, same K-loop
-      const float* r = t < kTile ? qs[t] : xs[t - kTile];
-#pragma unroll 8
-      for (int kk = 0; kk < kK; ++kk) nrm = fmaf(r[kk], r[kk], nrm);
-    }
-#pragma unroll 8
-    for (int kk = 0; kk < kK; ++kk) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qs[ty + 16 * i][kk];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = xs[tx + 16 * j][kk];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-  if (t < kTile) qn[t] = nrm;
-  else if (t < 2 * kTile) xn[t - kTile] = nrm;
-  __syncthreads();
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = r0 + ty + 16 * i;
-    if (r >= Bq) continue;
-    float* orow = out + static_cast<size_t>(r) * N;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + tx + 16 * j;
-      if (c >= N) continue;
-      const float dot = acc[i][j];
-      // l2 as the plain version orders it: (qq - 2 dot) + xx (2*dot is
-      // exact, so a contracted fma rounds the same)
-      orow[c] = metric == rt::kMetricL2
-                    ? (qn[ty + 16 * i] - 2.0f * dot) + xn[tx + 16 * j]
-                    : -dot;
-    }
-  }
-}
-
-template <typename T>
-int launch_simt(const void* q, const void* x, void* out, int Bq, int N, int D,
-           int metric, cudaStream_t stream) {
-  const dim3 grid((N + kTile - 1) / kTile, (Bq + kTile - 1) / kTile);
-  dist_kernel<T><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(x),
-      static_cast<float*>(out), Bq, N, D, metric);
-  return static_cast<int>(cudaGetLastError());
-}
-
-}  // namespace simt
+#include <cstring>
+#include <type_traits>
 
 namespace tc {
 
 constexpr int kBM = 64;        // queries per tile: the wgmma's M
 constexpr int kBN = 128;       // rows of x per tile: its N
 constexpr int kThreads = 128;
-constexpr int kChunk = 32;     // f32 values per 128-byte row chunk
-// one ring stage: q then x, 128-byte rows (the split's big parts replace
-// the values in place); two stages, then the small parts, laid out alike
+// one ring stage: q then x, 128-byte rows (f32: the split's big parts
+// replace the values in place); two stages, then (f32) the small parts,
+// laid out alike
 constexpr int kQBytes = kBM * 128, kXBytes = kBN * 128;
 constexpr int kStage = kQBytes + kXBytes;
-constexpr int kNorms = 3 * kStage;
-constexpr size_t kSmem = 1024 + kNorms + (kBM + kBN) * sizeof(float);
+
+template <typename T>
+constexpr bool kSplit = std::is_same<T, float>::value;  // 3xTF32
+template <typename T>
+constexpr int kNorms = (kSplit<T> ? 3 : 2) * kStage;
+template <typename T>
+constexpr size_t kSmem = 1024 + kNorms<T> + (kBM + kBN) * sizeof(float);
+// the epilogue: each warp's 8 x 128 half of its accumulator rows, rows
+// padded to 136 floats (conflict-free float2 writes and float4 reads), in
+// the current ring stage
+constexpr int kOutPad = kBN + 8;
+static_assert(4 * 8 * kOutPad * 4 <= kStage, "staged epilogue fits a stage");
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
   uint32_t u;
@@ -183,23 +81,28 @@ __device__ __forceinline__ uint32_t tf32_rna(float x) {
   return u;
 }
 
-// piece c (4 values from k) of source row `grow` into row `row` of a ring
-// stage's tile, zeros outside [0, nrows) x [0, D): a cp.async (VEC: D % 4
-// == 0 and 16-byte aligned pointers) or element loads
-template <bool VEC>
-__device__ __forceinline__ void copy_piece(uint8_t* tile, const float* src,
+// piece c (16 bytes: 16 / sizeof(T) values from k) of source row `grow`
+// into row `row` of a ring stage's tile, zeros outside [0, nrows) x [0,
+// D): a cp.async (VEC: 16-byte rows and pointers) or element loads
+template <typename T, bool VEC>
+__device__ __forceinline__ void copy_piece(uint8_t* tile, const T* src,
                                            int row, int grow, int nrows,
                                            int c, int k, int D) {
+  constexpr int P = 16 / sizeof(T);
+  using Raw = std::conditional_t<sizeof(T) == 4, uint32_t, uint16_t>;
   uint8_t* dst = tile + sm90::swz128(row, c);
   const bool in = grow < nrows && k < D;
-  const float* p = src + static_cast<size_t>(in ? grow : 0) * D;
+  const T* p = src + static_cast<size_t>(in ? grow : 0) * D;
   if constexpr (VEC) {
     sm90::cp_async16(dst, in ? p + k : src, in ? 16 : 0);
   } else {
-    float e[4];
+    const Raw* pr = reinterpret_cast<const Raw*>(p);
+    Raw e[P];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) e[i] = in && k + i < D ? p[k + i] : 0.f;
-    *reinterpret_cast<float4*>(dst) = make_float4(e[0], e[1], e[2], e[3]);
+    for (int i = 0; i < P; ++i) e[i] = in && k + i < D ? pr[k + i] : Raw(0);
+    uint4 v;
+    memcpy(&v, e, sizeof(v));
+    *reinterpret_cast<uint4*>(dst) = v;
   }
 }
 
@@ -223,21 +126,42 @@ __device__ __forceinline__ float split_piece(uint8_t* big, uint8_t* small,
   return sq;
 }
 
-template <bool VEC>
+// a 16-bit piece's sum of squares (8 values, f32 FMAs in k order)
+template <typename T>
+__device__ __forceinline__ float sq_piece(uint4 v) {
+  const uint32_t w[4] = {v.x, v.y, v.z, v.w};
+  float sq = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float2 f;
+    if constexpr (std::is_same<T, __half>::value)
+      f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    else
+      f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[i]));
+    sq = fmaf(f.x, f.x, sq);
+    sq = fmaf(f.y, f.y, sq);
+  }
+  return sq;
+}
+
+template <typename T, bool VEC>
 __global__ void __launch_bounds__(kThreads)
-dist_kernel(const float* __restrict__ q, const float* __restrict__ x,
+dist_kernel(const T* __restrict__ q, const T* __restrict__ x,
             float* __restrict__ out, int Bq, int N, int D, int metric,
             int nqt, int ntiles, bool out_vec) {
+  constexpr int kChunk = 128 / sizeof(T);   // values per 128-byte row
+  constexpr int P = 16 / sizeof(T);         // values per 16-byte piece
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
   uint8_t* ring = smem;
-  uint8_t* sm = smem + 2 * kStage;                   // the small parts
-  float* qn = reinterpret_cast<float*>(smem + kNorms);
+  uint8_t* sm = smem + 2 * kStage;                   // f32: the small parts
+  float* qn = reinterpret_cast<float*>(smem + kNorms<T>);
   float* xn = qn + kBM;
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
+  const bool l2 = metric == rt::kMetricL2;
   // copies and the per-chunk pass: piece c of rows rb + 16 i
   const int c = tid & 7, rb = tid >> 3;
   constexpr int kQI = kBM / 16, kXI = kBN / 16;
@@ -257,16 +181,16 @@ dist_kernel(const float* __restrict__ q, const float* __restrict__ x,
     if (g < total) {
       int r0, c0;
       tile_of(g, r0, c0);
-      const int k = (g % nk) * kChunk + 4 * c;
+      const int k = (g % nk) * kChunk + P * c;
       uint8_t* stage = ring + (g & 1) * kStage;
 #pragma unroll
       for (int i = 0; i < kQI; ++i)
-        copy_piece<VEC>(stage, q, rb + 16 * i, r0 + rb + 16 * i, Bq, c, k,
-                        D);
+        copy_piece<T, VEC>(stage, q, rb + 16 * i, r0 + rb + 16 * i, Bq, c,
+                           k, D);
 #pragma unroll
       for (int i = 0; i < kXI; ++i)
-        copy_piece<VEC>(stage + kQBytes, x, rb + 16 * i, c0 + rb + 16 * i,
-                        N, c, k, D);
+        copy_piece<T, VEC>(stage + kQBytes, x, rb + 16 * i,
+                           c0 + rb + 16 * i, N, c, k, D);
     }
     sm90::cp_async_commit();
   };
@@ -286,37 +210,64 @@ dist_kernel(const float* __restrict__ q, const float* __restrict__ x,
     __syncthreads();
     fetch(g + 1);                      // into chunk g - 1's free stage
 
-    // the pass over chunk g: norms and the split, big parts in place
     uint8_t* stage = ring + (g & 1) * kStage;
-#pragma unroll
-    for (int i = 0; i < kQI + kXI; ++i) {
-      const bool isq = i < kQI;
-      const int row = rb + 16 * (isq ? i : i - kQI);
-      const uint32_t off = (isq ? 0 : kQBytes) + sm90::swz128(row, c);
-      const float4 v = *reinterpret_cast<const float4*>(stage + off);
-      const float sq = split_piece(stage, sm, off, v);
-      if (isq) qss[i] += sq;
-      else xss[i - kQI] += sq;
-    }
-    sm90::fence_proxy_async();
-    __syncthreads();
-
-    const uint32_t big = sm90::smem_u32(stage);
-    const uint32_t small = sm90::smem_u32(sm);
     const int k0 = kc * kChunk;
-    sm90::wgmma_fence();
+    if constexpr (kSplit<T>) {
+      // the pass over chunk g: norms and the split, big parts in place
 #pragma unroll
-    for (int kk = 0; kk < kChunk / 8; ++kk) {
-      if (k0 + kk * 8 < D) {
-        const uint32_t off = kk * 32;
-        const uint64_t qbig = sm90::desc_kmajor(big + off);
-        const uint64_t qsm = sm90::desc_kmajor(small + off);
-        const uint64_t xbig = sm90::desc_kmajor(big + kQBytes + off);
-        const uint64_t xsm = sm90::desc_kmajor(small + kQBytes + off);
-        // a tile's first product overwrites the accumulator
-        sm90::wgmma_ss_m64n128k8_tf32(acc, qsm, xbig, kc > 0 || kk > 0);
-        sm90::wgmma_ss_m64n128k8_tf32(acc, qbig, xsm, 1);
-        sm90::wgmma_ss_m64n128k8_tf32(acc, qbig, xbig, 1);
+      for (int i = 0; i < kQI + kXI; ++i) {
+        const bool isq = i < kQI;
+        const int row = rb + 16 * (isq ? i : i - kQI);
+        const uint32_t off = (isq ? 0 : kQBytes) + sm90::swz128(row, c);
+        const float4 v = *reinterpret_cast<const float4*>(stage + off);
+        const float sq = split_piece(stage, sm, off, v);
+        if (isq) qss[i] += sq;
+        else xss[i - kQI] += sq;
+      }
+      sm90::fence_proxy_async();
+      __syncthreads();
+
+      const uint32_t big = sm90::smem_u32(stage);
+      const uint32_t small = sm90::smem_u32(sm);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 8; ++kk) {
+        if (k0 + kk * 8 < D) {
+          const uint32_t off = kk * 32;
+          const uint64_t qbig = sm90::desc_kmajor(big + off);
+          const uint64_t qsm = sm90::desc_kmajor(small + off);
+          const uint64_t xbig = sm90::desc_kmajor(big + kQBytes + off);
+          const uint64_t xsm = sm90::desc_kmajor(small + kQBytes + off);
+          // a tile's first product overwrites the accumulator
+          sm90::wgmma_ss_m64n128k8_tf32(acc, qsm, xbig, kc > 0 || kk > 0);
+          sm90::wgmma_ss_m64n128k8_tf32(acc, qbig, xsm, 1);
+          sm90::wgmma_ss_m64n128k8_tf32(acc, qbig, xbig, 1);
+        }
+      }
+    } else {
+      if (l2) {  // the norms; the products of 16-bit values are exact
+#pragma unroll
+        for (int i = 0; i < kQI + kXI; ++i) {
+          const bool isq = i < kQI;
+          const int row = rb + 16 * (isq ? i : i - kQI);
+          const uint32_t off = (isq ? 0 : kQBytes) + sm90::swz128(row, c);
+          const float sq =
+              sq_piece<T>(*reinterpret_cast<const uint4*>(stage + off));
+          if (isq) qss[i] += sq;
+          else xss[i - kQI] += sq;
+        }
+      }
+      const uint32_t base = sm90::smem_u32(stage);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kChunk / 16; ++kk) {
+        if (k0 + kk * 16 < D) {
+          const uint32_t off = kk * 32;
+          // a tile's first product overwrites the accumulator
+          sm90::wgmma_ss<kBN, T>(acc, sm90::desc_kmajor(base + off),
+                                 sm90::desc_kmajor(base + kQBytes + off),
+                                 kc > 0 || kk > 0);
+        }
       }
     }
     sm90::wgmma_commit();
@@ -344,30 +295,46 @@ dist_kernel(const float* __restrict__ q, const float* __restrict__ x,
       xss[i] = 0.f;
     }
     __syncthreads();
-    // straight from the accumulator: a quad writes 32 contiguous bytes
+    // through this warp's part of the current stage (the wgmmas that read
+    // it are done; the next chunk copies into the other): 8 rows of the
+    // accumulator at a time, then each row as 32 lanes x 16 bytes, so
+    // that a store instruction writes 512 contiguous bytes of a row
+    float* buf = reinterpret_cast<float*>(stage) + warp * 8 * kOutPad;
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
-      const int rl = 16 * warp + (lane >> 2) + 8 * i;
-      const int r = r0 + rl;
-      if (r >= Bq) continue;
-      const float qq = qn[rl];
-      float* orow = out + static_cast<size_t>(r) * N;
 #pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        const int cl = 8 * j + 2 * (lane & 3), col = c0 + cl;
-        const float d0 = acc[4 * j + 2 * i], d1 = acc[4 * j + 2 * i + 1];
+      for (int j = 0; j < kBN / 8; ++j)
+        *reinterpret_cast<float2*>(buf + (lane >> 2) * kOutPad + 8 * j +
+                                   2 * (lane & 3)) =
+            make_float2(acc[4 * j + 2 * i], acc[4 * j + 2 * i + 1]);
+      __syncwarp();
+      const int cl = 4 * lane, col = c0 + cl;
+      const float4 xq = *reinterpret_cast<const float4*>(xn + cl);
+#pragma unroll
+      for (int rr = 0; rr < 8; ++rr) {
+        const int rl = 16 * warp + 8 * i + rr;
+        const int r = r0 + rl;
+        if (r >= Bq) break;
+        const float qq = qn[rl];
+        const float4 d4 =
+            *reinterpret_cast<const float4*>(buf + rr * kOutPad + cl);
         // l2 as the plain version orders it: (qq - 2 dot) + xx
-        const float v0 =
-            metric == rt::kMetricL2 ? (qq - 2.0f * d0) + xn[cl] : -d0;
-        const float v1 =
-            metric == rt::kMetricL2 ? (qq - 2.0f * d1) + xn[cl + 1] : -d1;
-        if (out_vec && col + 1 < N) {
-          __stcs(reinterpret_cast<float2*>(orow + col), make_float2(v0, v1));
+        float4 v;
+        v.x = l2 ? (qq - 2.0f * d4.x) + xq.x : -d4.x;
+        v.y = l2 ? (qq - 2.0f * d4.y) + xq.y : -d4.y;
+        v.z = l2 ? (qq - 2.0f * d4.z) + xq.z : -d4.z;
+        v.w = l2 ? (qq - 2.0f * d4.w) + xq.w : -d4.w;
+        float* orow = out + static_cast<size_t>(r) * N;
+        if (out_vec && col + 3 < N) {
+          __stcs(reinterpret_cast<float4*>(orow + col), v);
         } else {
-          if (col < N) __stcs(orow + col, v0);
-          if (col + 1 < N) __stcs(orow + col + 1, v1);
+          const float e[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+          for (int u = 0; u < 4; ++u)
+            if (col + u < N) __stcs(orow + col + u, e[u]);
         }
       }
+      __syncwarp();
     }
   }
   sm90::cp_async_wait<0>();
@@ -375,65 +342,78 @@ dist_kernel(const float* __restrict__ q, const float* __restrict__ x,
 
 constexpr int kMaxDevices = 64;
 
-template <bool VEC>
+// `smem`: the block's dynamic shared memory as the wrapper planned it
+// (kernels/distance.py::plan), at least kSmem<T>
+template <typename T, bool VEC>
 int launch(const void* q, const void* x, void* out, int Bq, int N, int D,
-           int metric, cudaStream_t stream) {
-  auto* kern = dist_kernel<VEC>;
+           int metric, int smem, cudaStream_t stream) {
+  auto* kern = dist_kernel<T, VEC>;
   const int nqt = (Bq + kBM - 1) / kBM;
   const long long tiles =
       static_cast<long long>(nqt) * ((N + kBN - 1) / kBN);
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (tiles > 0x7fffffffLL || dev >= kMaxDevices)
+  if (tiles > 0x7fffffffLL || dev >= kMaxDevices ||
+      smem < static_cast<int>(kSmem<T>))
     return static_cast<int>(cudaErrorInvalidValue);
-  // once a device: the shared-memory opt-in and the blocks it holds at once
+  // once a device and size: the shared-memory opt-in and the blocks the
+  // card holds at once
   static int resident[kMaxDevices] = {};
-  if (resident[dev] == 0) {
+  static int planned[kMaxDevices] = {};
+  if (resident[dev] == 0 || planned[dev] != smem) {
     int sms = 0, per_sm = 0;
     if ((err = cudaFuncSetAttribute(
-             kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-             static_cast<int>(kSmem))) != cudaSuccess ||
+             kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem)) !=
+            cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess ||
         (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &per_sm, kern, kThreads, kSmem)) != cudaSuccess)
+             &per_sm, kern, kThreads, smem)) != cudaSuccess)
       return static_cast<int>(err);
     resident[dev] = sms * std::max(per_sm, 1);
+    planned[dev] = smem;
   }
   const long long blocks =
       std::min(tiles, static_cast<long long>(resident[dev]));
   const bool out_vec =
-      N % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
-  kern<<<static_cast<unsigned>(blocks), kThreads, kSmem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(x),
+      N % 4 == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
+  kern<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(x),
       static_cast<float*>(out), Bq, N, D, metric, nqt,
       static_cast<int>(tiles), out_vec);
   return static_cast<int>(cudaGetLastError());
 }
 
+// vec: 16-byte copies (the wrapper's plan: D a multiple of a 16-byte
+// piece's values, both pointers 16-byte aligned), else element loads
+template <typename T>
+int launch_any(const void* q, const void* x, void* out, int Bq, int N, int D,
+               int metric, int vec, int smem, cudaStream_t stream) {
+  return vec ? launch<T, true>(q, x, out, Bq, N, D, metric, smem, stream)
+             : launch<T, false>(q, x, out, Bq, N, D, metric, smem, stream);
+}
+
 }  // namespace tc
 
 // q [Bq, D] and x [N, D], both of `dtype` (0 f32, 1 bf16, 2 f16) ->
-// out f32[Bq, N]; metric 0 l2, 1 ip. f32: ceil(Bq / 64) * ceil(N / 128)
-// tiles (at most 2^31 - 1) over as many blocks as the card holds at once;
-// bf16 / f16: one block per 64 x 64 tile, Bq <= 65535 * 64.
+// out f32[Bq, N]; metric 0 l2, 1 ip; vec and smem as the wrapper planned
+// them. ceil(Bq / 64) * ceil(N / 128) tiles (at most 2^31 - 1) over as
+// many blocks as the card holds at once.
 RT_API int rt_pairwise_dist(const void* q, const void* x, void* out, int Bq,
-                            int N, int D, int dtype, int metric,
-                            void* stream) {
+                            int N, int D, int dtype, int metric, int vec,
+                            int smem, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: {
-      const bool vec = D % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(q) % 16 == 0 &&
-                       reinterpret_cast<uintptr_t>(x) % 16 == 0;
-      return vec ? tc::launch<true>(q, x, out, Bq, N, D, metric, s)
-                 : tc::launch<false>(q, x, out, Bq, N, D, metric, s);
-    }
+    case 0:
+      return tc::launch_any<float>(q, x, out, Bq, N, D, metric, vec, smem,
+                                   s);
     case 1:
-      return simt::launch_simt<__nv_bfloat16>(q, x, out, Bq, N, D, metric,
-                                              s);
-    case 2: return simt::launch_simt<__half>(q, x, out, Bq, N, D, metric, s);
+      return tc::launch_any<__nv_bfloat16>(q, x, out, Bq, N, D, metric, vec,
+                                           smem, s);
+    case 2:
+      return tc::launch_any<__half>(q, x, out, Bq, N, D, metric, vec, smem,
+                                    s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

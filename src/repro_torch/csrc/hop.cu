@@ -28,10 +28,9 @@
 // trips (frontier, edge ids, visited words, rows) in three phases:
 //   1. the last warp brings the query row into shared memory by cp.async;
 //      one warp per frontier row loads (u, L, R, exp_ok), finds the layers
-//      Algorithm 1 scans (common.cuh warp_scan_layers: two ballots) and
-//      copies just those layers' edge ids into shared memory by cp.async,
-//      all at once, then runs the selection on shared memory
-//      (warp_select);
+//      Algorithm 1 scans (two ballots), copies just those layers' edge ids
+//      into shared memory by cp.async, all at once, and runs the selection
+//      there (common.cuh warp_select_staged, edge_select.cu's code path);
 //   2. one thread per candidate slot reads its visited word in GLOBAL
 //      memory (at n = 1M a visited row is 125 KB and a hop touches W*m_out
 //      words of it, so the TPU kernel's practice of holding the tile's
@@ -109,37 +108,10 @@ hop_kernel(const float* __restrict__ q, rt::Rows t,
     const int row = b * W + w;
     const int us = __ldg(u + row), Lr = __ldg(L + row), Rr = __ldg(R + row);
     const bool ok = __ldg(exp_ok + row) != 0;
-    const unsigned lmask =
-        us >= 0 ? rt::warp_scan_layers(us, Lr, Rr, layers, logn,
-                                       skip_layers != 0)
-                : 0u;
-    const int nl = __popc(lmask);
-    int* lw = lays + w * 32;
-    if ((lmask >> lane) & 1u) lw[__popc(lmask & rt::lanes_below(lane))] = lane;
-    __syncwarp();
-    int* eb = blk + w * K;
-    const int* src = nbrs + static_cast<size_t>(min(max(us, 0), n - 1)) * K;
-    if (edge_vec) {  // m and K multiples of 4, the table 16-byte aligned
-      const int m4 = m >> 2;
-      for (int i = lane; i < nl * m4; i += 32) {
-        const int li = i / m4, c = (i - li * m4) * 4;
-        rt::copy16_async(eb + li * m + c, src + lw[li] * m + c);
-      }
-    } else {
-      for (int i = lane; i < nl * m; i += 32) {
-        const int li = i / m;
-        rt::copy4_async(eb + i, src + lw[li] * m + (i - li * m));
-      }
-    }
-    rt::copy_async_wait();
-    __syncwarp();
     int* o = sel + w * m_out;
-    rt::warp_select(
-        [&](int p, bool& scanned) {
-          scanned = true;
-          return eb[p];
-        },
-        nl * m, us, Lr, Rr, m_out, o);
+    rt::warp_select_staged(nbrs, n, layers, m, logn, skip_layers != 0,
+                           edge_vec != 0, us, Lr, Rr, m_out, blk + w * K,
+                           lays + w * 32, o);
     for (int i = lane; i < m_out; i += 32) selm[w * m_out + i] = ok ? o[i] : -1;
   }
   rt::copy_async_wait();
@@ -198,8 +170,7 @@ int launch(const float* q, const rt::Rows& t, const int* nbrs, const int* u,
   if (warps < 1 || warps > rt::kMaxWarps || W * m_out > warps * 32 ||
       layers > 32)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int edge_vec = m % 4 == 0 &&
-                       reinterpret_cast<uintptr_t>(nbrs) % 16 == 0;
+  const int edge_vec = rt::edge_copy_vec(nbrs, m);
   auto kernel = hop_kernel<LAYOUT, VPL>;
   const size_t smem = hop_smem(t.d, W, K, m_out);
   if (smem > 48 * 1024) {

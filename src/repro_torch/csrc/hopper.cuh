@@ -10,8 +10,9 @@
 //     chunk c ^ (r % 8) -- the layout TMA writes with
 //     CU_TENSOR_MAP_SWIZZLE_128B and that swz128() computes by hand;
 //   * wgmma.fence / commit_group / wait_group, and mma_async for
-//     m64nNk16 bf16 and f16 (A from shared memory or from registers) and
-//     m64nNk8 tf32 (both from shared memory), f32 accumulators;
+//     m64nNk16 bf16 and f16 (A and B from shared memory at N = 32 and 128;
+//     A from registers at N = 64-256) and m64n128k8 tf32 (both from shared
+//     memory), f32 accumulators;
 //   * mbarrier init, arrive_expect_tx and try_wait.parity;
 //   * cp.async.bulk.tensor (TMA) 4-d loads and the host-side encoding of a
 //     tensor map; 16-byte cp.async with zero fill.
@@ -204,6 +205,56 @@ __device__ __forceinline__ void wgmma_ss_m64n32k16_f16(float (&d)[16], uint64_t 
       "%17, %18, p, 1, 1, 0, 0;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(scale_d), "l"(a), "l"(b));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n128k16_bf16(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %64, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%65, %66, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(scale_d), "l"(a), "l"(b));
+}
+
+__device__ __forceinline__ void wgmma_ss_m64n128k16_f16(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %64, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.f16.f16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, "
+      "%56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%65, %66, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(scale_d), "l"(a), "l"(b));
 }
 
@@ -468,11 +519,15 @@ __device__ __forceinline__ void wgmma_ss_m64n128k8_tf32(float (&d)[64], uint64_t
 template <int N, typename T>
 __device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
                                          uint64_t b, int scale_d) {
-  static_assert(N == 32, "wgmma_ss: N");
-  if constexpr (std::is_same<T, __half>::value)
-    wgmma_ss_m64n32k16_f16(d, a, b, scale_d);
-  else
-    wgmma_ss_m64n32k16_bf16(d, a, b, scale_d);
+  constexpr bool kF16 = std::is_same<T, __half>::value;
+  static_assert(N == 32 || N == 128, "wgmma_ss: N");
+  if constexpr (N == 32) {
+    if constexpr (kF16) wgmma_ss_m64n32k16_f16(d, a, b, scale_d);
+    else wgmma_ss_m64n32k16_bf16(d, a, b, scale_d);
+  } else {
+    if constexpr (kF16) wgmma_ss_m64n128k16_f16(d, a, b, scale_d);
+    else wgmma_ss_m64n128k16_bf16(d, a, b, scale_d);
+  }
 }
 
 // d += A.B for a 64 x N tile of 16-bit T, A from registers, B MN-major.

@@ -3,10 +3,11 @@
 Replaces the TPU kernel ``repro/kernels/edge_select.py::
 _edge_select_kernel`` (line 52), lazy dedup. The kernel is
 ``csrc/edge_select.cu``; its header says what bounds it on the H100
-(memory: each frontier node's K = layers*m edge ids) and what its design
-does about that (one warp per node, ballots over layers, an in-order scan
-that stops at ``m_out`` distinct ids). The plain version is
-``kernels/ref.py::select_edges`` (``plain`` here); the two are
+(memory: each frontier node's scanned edge ids, in two dependent round
+trips) and what its design does about that (CTAs of eight warps, one
+frontier row a warp; the scanned layers' ids copied into shared memory at
+once, then selected there, as the fused hop's phase 1 does). The plain
+version is ``kernels/ref.py::select_edges`` (``plain`` here); the two are
 bit-identical.
 """
 from __future__ import annotations

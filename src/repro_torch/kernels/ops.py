@@ -37,7 +37,7 @@ once per launch and nowhere else); :func:`layout_counts` reads the
 per-layout counts of ``gather_dist``, ``hop`` and ``prune``, and
 :func:`body_counts` the per-body counts of ``flash_attention``
 (``"wgmma"``, ``"cuda_cores"``) and ``pairwise_dist`` (``"tf32x3"``,
-``"cuda_cores"``). ``prune_cuda.regime_launches`` counts the prune's
+``"wgmma"``). ``prune_cuda.regime_launches`` counts the prune's
 launches per regime (``prune.REGIMES``: ``"block"``, ``"table"``,
 ``"partial"``), and :func:`reset_launch_counts` zeroes it too.
 """

@@ -22,7 +22,11 @@ once, summed in other orders), on the body its dtype and head dim name
 head dim, GQA groups up to 48 and query lengths around its tiles), and
 gives 0 on a row that sees no key, as the TPU kernel does. The all-pairs distance
 kernel runs ``repro``'s shape sweep (tests/test_kernels.py) and one ragged
-large shape in f32, bf16 and f16, l2 and ip, within 1e-5 of its terms; the
+large shape in f32, bf16 and f16, l2 and ip, within 1e-5 of its terms, the
+16-bit types also within ``half_gate`` (and on dots that cancel to 0, from
+aligned and unaligned rows); edge_select runs F not a multiple of its
+CTA's warps, 48- and 24-byte layers, inactive rows and m_out above the
+scanned ids; the
 prune runs on every stored layout (bf16, f16, int8, PQ) at d = 128 and
 1024, kept ids identical to the plain version's. gather_dist runs in every
 regime of its launch plan (a query row over several tasks, one a task),
@@ -37,7 +41,7 @@ import torch
 from repro_torch.core import bitset
 from repro_torch.core import storage
 from repro_torch.kernels import ops, ref
-from repro_torch.kernels.distance import pairwise_dist_cuda
+from repro_torch.kernels.distance import half_gate, pairwise_dist_cuda
 from repro_torch.kernels.edge_select import select_edges_cuda
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.gather_distance import gather_dist_cuda
@@ -164,9 +168,17 @@ def test_hop_plan_regimes(dev, B, d, layout):
 
 
 @pytest.mark.parametrize("skip_layers", [True, False])
-@pytest.mark.parametrize("case", ["random", "L>R", "L==R", "full"])
+@pytest.mark.parametrize("case", ["random", "L>R", "L==R", "full",
+                                  "F_ragged", "m12", "m6", "inactive",
+                                  "m_out_above_scanned"])
 def test_select_edges(dev, skip_layers, case):
-    p = _problem(dev, n=1000, m=8, B=64, W=1)
+    """The CTA's rows (eight warps, one frontier row each) in every case:
+    F not a multiple of the warps, m = 12 (48-byte layers) and m = 6 (the
+    4-byte copy), rows with u = -1, and m_out above the ids the scanned
+    layers hold (a narrow range scans one layer)."""
+    m = {"m12": 12, "m6": 6}.get(case, 8)
+    B = 61 if case == "F_ragged" else 64
+    p = _problem(dev, n=1000, m=m, B=B, W=1)
     us = p["u"].reshape(-1)
     L, R = p["Lw"].clone(), p["Rw"].clone()
     if case == "L>R":
@@ -177,12 +189,22 @@ def test_select_edges(dev, skip_layers, case):
     elif case == "full":
         L[:] = 0
         R[:] = p["n"] - 1
-    for m_out in (1, 8, 40):
+    elif case == "inactive":
+        us = torch.where(torch.arange(B, device=dev) % 3 == 0, -1, us)
+    elif case == "m_out_above_scanned":
+        us = L.clone()
+        R = L + 1
+    m_outs = (1, 8, 40) if case != "m_out_above_scanned" else (40, 200)
+    for m_out in m_outs:
         got = select_edges_cuda(p["nbrs"], us, L, R, logn=p["logn"],
                                 m_out=m_out, skip_layers=skip_layers)
         want = ref.select_edges(p["nbrs"], us, L, R, logn=p["logn"],
                                 m_out=m_out, skip_layers=skip_layers)
         assert torch.equal(got, want)
+        if case == "m_out_above_scanned":
+            assert bool((want[:, m_out - 1] == -1).all())
+        if case == "inactive":
+            assert bool((got[us < 0] == -1).all())
 
 
 @pytest.mark.parametrize("layout", list(LAYOUTS))
@@ -409,8 +431,8 @@ def test_prune_table_lazy_column(dev, C, layout):
 # repro's sweep (tests/test_kernels.py) and one ragged large shape
 DIST_SHAPES = [(8, 8, 8), (16, 32, 24), (37, 65, 40), (128, 128, 64),
                (3, 200, 130), (1000, 70001, 131), (1, 300, 64), (50, 1, 128)]
-DIST_BODY = {torch.float32: "tf32x3", torch.bfloat16: "cuda_cores",
-             torch.float16: "cuda_cores"}
+DIST_BODY = {torch.float32: "tf32x3", torch.bfloat16: "wgmma",
+             torch.float16: "wgmma"}
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -431,6 +453,57 @@ def test_pairwise_dist(dev, metric, bq, n, d, dtype):
     qf, xf = q.float(), x.float()
     tol = 1e-5 * ((qf * qf).sum(1, keepdim=True) + (xf * xf).sum(1)[None])
     assert bool(((got - want).abs() <= tol).all())
+    if dtype != torch.float32:
+        gate = half_gate(got, q, x, metric=metric, plain=want)
+        assert gate["over_plain"] == 0 and gate["over_exact"] == 0
+
+
+def cancelling_inputs(bq, n, d, dtype, seed=0):
+    """q [bq, d] and x [n, d] in ``dtype`` from a numpy seed, whose first
+    halves of rows give dots that cancel exactly (q = [a, a], x = [b, -b],
+    so q.x = 0 beside |q|.|x| of some d * 64) and whose other rows are
+    plain normal draws (dots that do not cancel): the inputs on which the
+    half types' gate is stated (kernels/distance.py::half_gate). Also used
+    by tests/test_torch_tc_numerics.py and tests/test_torch_distance.py."""
+    rng = np.random.default_rng(seed)
+    h = d // 2
+    a = rng.standard_normal((bq, h)) * 8
+    b = rng.standard_normal((n, h)) * 8
+    q = np.concatenate([a, a, np.zeros((bq, d - 2 * h))], 1)
+    x = np.concatenate([b, -b, np.zeros((n, d - 2 * h))], 1)
+    q[bq // 2:] = rng.standard_normal((bq - bq // 2, d)) * 8
+    x[n // 2:] = rng.standard_normal((n - n // 2, d)) * 8
+    return torch.from_numpy(q).to(dtype), torch.from_numpy(x).to(dtype)
+
+
+def _shifted(t, offset):
+    """t's values in a contiguous tensor that starts ``offset`` elements
+    into its buffer (offset 1: rows not 16-byte aligned)."""
+    buf = torch.empty(t.numel() + offset, dtype=t.dtype, device=t.device)
+    v = buf[offset:].view(t.shape)
+    v.copy_(t)
+    return v
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "unaligned"])
+def test_pairwise_dist_half_gate_on_cancelling_dots(dev, metric, dtype,
+                                                    offset):
+    """Dots that cancel to 0 beside a large |q|.|x|: the wgmma body and the
+    plain version both pass ``half_gate`` (against each other and against
+    the exact result), from 16-byte-aligned rows and from rows one element
+    off (the element loads)."""
+    q, x = cancelling_inputs(128, 1000, 128, dtype)
+    q, x = _shifted(q.to(dev), offset), _shifted(x.to(dev), offset)
+    ops.reset_launch_counts()
+    got = pairwise_dist_cuda(q, x, metric=metric)
+    assert ops.body_counts()["pairwise_dist[wgmma]"] == 1
+    want = ref.pairwise_dist(q, x, metric=metric)
+    gate = half_gate(got, q, x, metric=metric, plain=want)
+    assert gate["over_plain"] == 0 and gate["over_exact"] == 0, gate
+    assert half_gate(want, q, x, metric=metric)["over_exact"] == 0
 
 
 def test_pairwise_dist_rejects_bad_inputs(dev):

@@ -7,7 +7,11 @@ and its dispatch (``ops.pairwise_dist``, "auto" on CPU tensors: the plain
 version, no launch). ``repro``'s own sweep (tests/test_kernels.py): l2 and
 ip, f32 and bf16, five shapes, tolerance 1e-4 for f32 and 3e-2 for bf16
 as that test states (bf16 inputs widen exactly; the two sides sum in
-other orders). Plus the ordering test and f16 inputs.
+other orders). Plus the ordering test and f16 inputs, and dots that cancel
+to 0 beside a large |q|.|x| in bf16 and f16, where the port's plain version
+and both of ``repro``'s pass the half types' gate
+(``kernels/distance.py::half_gate``) against each other and the exact
+result.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -16,8 +20,10 @@ import torch
 
 import repro.kernels.distance as jdist
 from repro.kernels import ref as jref
+from repro_torch.kernels import distance as tdist
 from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
+from test_torch_cuda import cancelling_inputs
 
 SHAPES = [(8, 8, 8), (16, 32, 24), (37, 65, 40), (128, 128, 64),
           (3, 200, 130)]
@@ -65,6 +71,27 @@ def test_pairwise_dist_f16_widens_exactly():
         got = tops.pairwise_dist(q, x, metric=metric)
         want = tref.pairwise_dist(q.float(), x.float(), metric=metric)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_pairwise_dist_cancelling_dots_pass_half_gate(metric, dtype):
+    q, x = cancelling_inputs(32, 256, 128, dtype)
+    jdt = jnp.bfloat16 if dtype == torch.bfloat16 else jnp.float16
+    jq = jnp.asarray(q.float().numpy()).astype(jdt)   # exact: same values
+    jx = jnp.asarray(x.float().numpy()).astype(jdt)
+    kern = jdist.pairwise_dist_kernel_call(
+        jq, jx, metric=metric, block_q=16, block_n=64, block_k=64,
+        interpret=True)
+    got = tops.pairwise_dist(q, x, metric=metric)
+    assert torch.equal(got, tref.pairwise_dist(q, x, metric=metric))
+    assert tdist.half_gate(got, q, x, metric=metric)["over_exact"] == 0
+    for want in (kern, jref.pairwise_dist(jq, jx, metric=metric)):
+        w = torch.from_numpy(np.asarray(want).copy())
+        gate = tdist.half_gate(got, q, x, metric=metric, plain=w)
+        assert gate["over_plain"] == 0 and gate["over_exact"] == 0, gate
+        assert tdist.half_gate(w, q, x, metric=metric)["over_exact"] == 0
 
 
 def test_pairwise_dist_ordering_preserved():

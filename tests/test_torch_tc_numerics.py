@@ -15,12 +15,16 @@ gates' own tolerances:
   * pairwise distance: 3xTF32 (``cvt.rna`` to tf32 for the big parts, the
     hardware's truncation of the low 13 bits for the small ones, the
     small x small term dropped, f32 sums) within DIST_RTOL = 1e-5 of
-    ``‖q‖² + ‖x‖²``; one TF32 product is not.
+    ``‖q‖² + ‖x‖²``; one TF32 product is not. The bf16/f16 wgmma body
+    (each k16 step's exact products added to the f32 accumulator and
+    truncated, steps in k order) and the port's plain version both pass
+    ``kernels/distance.py::half_gate`` on dots that cancel to 0 beside a
+    large |q|.|x|; rounding the output or the products to bf16 does not.
 
 Then the wrappers' planning, which is pure Python: which flash body runs,
 the tensor-core tiling (GQA heads packed into a 64-row tile at short S),
 its shared memory and grid, whether strides allow TMA, and the pairwise
-grid. Inputs are made from numpy seeds.
+plan (tiles, 16-byte copies or element loads, shared memory). Inputs are made from numpy seeds.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -30,6 +34,8 @@ import torch
 from repro.kernels import ref as jref
 from repro_torch.kernels import distance as tdist
 from repro_torch.kernels import flash_attention as tflash
+from repro_torch.kernels import ref as tref
+from test_torch_cuda import _shifted, cancelling_inputs
 
 LOG2E = 1.4426950408889634
 DIST_RTOL = 1e-5            # chip_smoke.py: relative to ‖q‖² + ‖x‖²
@@ -194,6 +200,85 @@ def test_tf32_split_is_exact():
     assert float(((a - big).abs() / a.abs()).max()) <= 2.0 ** -11
 
 
+def rz32(v):
+    """f64 -> f32 rounded toward zero: how the tensor cores round while
+    they accumulate."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def dot_wgmma_16bit(q, x):
+    """The wgmma body's dot of 16-bit q and x: each m64n128k16 step adds
+    its 16 exact products to the f32 accumulator and truncates once, the
+    steps in k order."""
+    qd, xd = q.double(), x.double()
+    acc = torch.zeros((q.shape[0], x.shape[0]), dtype=torch.float32)
+    for k in range(0, q.shape[1], 16):
+        acc = rz32(acc.double() + qd[:, k:k + 16] @ xd[:, k:k + 16].T)
+    return acc
+
+
+def _half_out(q, x, dot, metric):
+    """The kernel's epilogue on a dot: -dot, or (qq - 2 dot) + xx with
+    the norms summed in f32."""
+    if metric == "ip":
+        return -dot
+    qf, xf = q.float(), x.float()
+    return ((qf * qf).sum(1, keepdim=True) - 2.0 * dot) \
+        + (xf * xf).sum(1)[None]
+
+
+HALF = [torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "f16"])
+def test_wgmma_16bit_sum_order_passes_half_gate(dtype, metric):
+    q, x = cancelling_inputs(64, 512, 128, dtype)
+    plain = tref.pairwise_dist(q, x, metric=metric)
+    got = _half_out(q, x, dot_wgmma_16bit(q, x), metric)
+    gate = tdist.half_gate(got, q, x, metric=metric, plain=plain)
+    assert gate["over_plain"] == 0 and gate["over_exact"] == 0, gate
+    assert gate["margin_exact"] < 0.1
+    own = tdist.half_gate(plain, q, x, metric=metric)
+    assert own["over_exact"] == 0 and own["margin_exact"] < 0.1, own
+    # the cancelling dots are exactly 0: what the sums leave there is
+    # rounding, far inside the gate
+    assert float((q[:32].double() @ x[:256].double().T).abs().max()) == 0.0
+
+
+@pytest.mark.parametrize("how", ["output", "products"])
+@pytest.mark.parametrize("metric", ["l2", "ip"])
+@pytest.mark.parametrize("dtype", HALF, ids=["bf16", "f16"])
+def test_half_gate_fails_bf16_rounding(dtype, metric, how):
+    """The gate has teeth: the output rounded to bf16, or each product
+    rounded to bf16 before the f32 sum, puts thousands of outputs over
+    it, some by 20x or more."""
+    q, x = cancelling_inputs(64, 512, 128, dtype)
+    if how == "output":
+        got = _half_out(q, x, dot_wgmma_16bit(q, x), metric).bfloat16()
+    else:
+        prod = q.float()[:, None, :] * x.float()[None, :, :]
+        got = _half_out(q, x, prod.bfloat16().float().sum(-1), metric)
+    gate = tdist.half_gate(got.float(), q, x, metric=metric)
+    assert gate["over_exact"] > 1000 and gate["margin_exact"] > 20, gate
+
+
+def test_half_gate_chunks_agree():
+    """The gate's column chunks (GATE_CHUNK) change no count."""
+    q, x = cancelling_inputs(16, 700, 64, torch.bfloat16)
+    got = _half_out(q, x, dot_wgmma_16bit(q, x), "ip").bfloat16().float()
+    whole = tdist.half_gate(got, q, x, metric="ip")
+    old = tdist.GATE_CHUNK
+    try:
+        tdist.GATE_CHUNK = 128
+        parts = tdist.half_gate(got, q, x, metric="ip")
+    finally:
+        tdist.GATE_CHUNK = old
+    assert whole == parts
+
+
 # -- planning ---------------------------------------------------------------
 
 @pytest.mark.parametrize("dtype,Dh,body", [
@@ -299,3 +384,30 @@ def test_pairwise_grid():
     assert tdist.grid_of(1000, 1_000_000) == 16 * 7813
     assert tdist.grid_of(1, 1) == 1
     assert tdist.grid_of(65, 129) == 4
+
+
+@pytest.mark.parametrize("dtype,D,offset,vec", [
+    (torch.bfloat16, 128, 0, True), (torch.float16, 136, 0, True),
+    (torch.bfloat16, 130, 0, False), (torch.float16, 131, 0, False),
+    (torch.bfloat16, 132, 0, False), (torch.bfloat16, 128, 1, False),
+    (torch.float32, 128, 0, True), (torch.float32, 132, 0, True),
+    (torch.float32, 130, 0, False), (torch.float32, 128, 2, False),
+])
+def test_pairwise_plan(dtype, D, offset, vec):
+    """16-byte copies where a 16-byte piece of every row is whole and
+    aligned (D a multiple of 8 16-bit or 4 f32 values, both pointers on 16
+    bytes), else element loads; the body by dtype; shared memory within a
+    block's 232,448 bytes: the aligned ring of two stages (f32: three) and
+    the norms."""
+    q = _shifted(torch.zeros((70, D), dtype=dtype), offset)
+    x = _shifted(torch.zeros((300, D), dtype=dtype), offset)
+    p = tdist.plan(q, x)
+    assert p.vec == vec
+    assert p.tiles == tdist.grid_of(70, 300) == 6
+    f32 = dtype == torch.float32
+    assert p.body == ("tf32x3" if f32 else "wgmma")
+    stage = (64 + 128) * 128
+    assert p.smem == 1024 + (3 if f32 else 2) * stage + (64 + 128) * 4
+    assert p.smem <= SMEM_PER_BLOCK
+    # four 16-bit blocks or three f32 blocks fit one SM's shared memory
+    assert (4 if not f32 else 3) * (p.smem + 1024) <= SMEM_PER_SM
