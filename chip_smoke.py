@@ -38,6 +38,21 @@ the full-size run, one card). It
      more search, fails unless each call's ids equal the plain version's,
      and times the middle call by device time with L2 cold beside its
      bound and its two-round-trip floor (``multiattr_edges``);
+  4c. drives the async serving loop under open-loop Poisson load
+     (``serve_slo_phase``): ``bench/serve_slo.py``'s three legs (nominal
+     at half the measured capacity, overload at 4x, chaos at 4x with
+     latency spikes, flush errors and queue-full bursts), its ``run_leg``
+     and defaults, through ``AsyncServingEngine`` on a
+     ``SearchExecutor(ef=64, k_bucket=10, max_batch=32)`` warmed on the
+     main thread, the 1,000 mixed queries as the request pool, every
+     count at 0 before each leg; prints per leg capacity, offered, each
+     outcome, p50/p99, how late the reaper delivered the timeouts of
+     requests in flight (the GIL it shares with the flush thread), and
+     the launches of gather_dist and the hop; fails on a lost request, a
+     failed one outside the chaos leg, a cache entry after warmup, a leg
+     without a hop launch, a flush thread on another stream or card, or
+     the nominal leg's recall@10 more than 0.01 from the same requests
+     served by a ``ServingEngine`` on that executor;
   5. holds every kernel against its plain version on the card at the main
      path's shapes (integers equal; distances within 1e-5 of the magnitude
      of their terms, ``‖q‖² + ‖x‖²``, since both sum d products in another
@@ -78,12 +93,16 @@ the full-size run, one card). It
      max_batch=64)`` and serves 1,000 requests; prints embed tokens/s,
      build s, QPS, p50/p99 latency, cache entries before and after warmup
      and after serving, recall@10 against ``brute_force``, the same
-     requests served with every op on plain torch, a 4,096-item subsample
+     requests served with every op on plain torch, the same requests once
+     more through ``AsyncServingEngine`` on the engine's executor (deadline
+     30 s, queue 1,024, "block"; QPS, p50/p99, id agreement), a 4,096-item
+     subsample
      embedded with attention on plain torch, and peak device memory;
      fails if flash_attention, prune, gather_dist or hop never launched,
      unless every flash launch (28 layers x each embed call) went to its
      tensor-core body, if serving added a cache entry, if recall is not within 0.01 of the
-     all-plain path's, or if a subsample row's cosine to the plain
+     all-plain path's, if the async pass did not serve every request
+     within 0.01 of the sync engine's recall or added a cache entry, or if a subsample row's cosine to the plain
      attention's is below 0.9999 or an element differs by more than 0.05;
      profiles one embed call;
   11. holds the flash-attention kernel against its plain version at the
@@ -184,6 +203,9 @@ BASE_KERNELS = {          # method -> kernels that must launch on it
 # The embed -> build -> serve path (launch/serve.py) at qwen3-0.6b's full
 # width: params f32, compute bf16, seeded random weights (no checkpoint is
 # in the repository).
+SLO_GATE_LEGS = ("nominal", "overload")  # legs where no flush may fail
+LM_ASYNC_DEADLINE_S = 30.0  # the lm phase's async pass: every request served
+LM_ASYNC_MAX_QUEUE = 1024
 LM_ARCH = "qwen3-0.6b"
 LM_N = 131072             # items embedded and indexed
 LM_SEQ = 32               # tokens per item (the launcher's default)
@@ -1416,6 +1438,9 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
     gt = index.original_ids(index.brute_force(qv, L, R, k=LM_K)[0])
     gt_s = time.perf_counter() - t0
     rec = recall(got, gt)
+    out["async"], good = lm_async(torch, index, engine, qv, los, his, got, gt,
+                                  rec)
+    ok &= good
     plain = ServingEngine(index, config=SearchConfig(
         ef=LM_EF, k_bucket=LM_K, hop_impl="torch", edge_impl="torch",
         dist_impl="torch"), max_batch=LM_MAX_BATCH)
@@ -1516,6 +1541,62 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
     out["queries"] = (qv, L, R)
     out["model"] = (model, params)
     return out, ok
+
+
+def lm_async(torch, index, engine, qv, los, his, sync_ids, gt,
+             sync_recall) -> tuple[dict, bool]:
+    """The lm phase's requests a second time, through
+    ``AsyncServingEngine`` on the sync engine's warmed executor (deadline
+    30 s, queue 1,024, ``"block"``: every request is expected served).
+    Prints QPS, p50/p99 and id agreement with the sync engine's results.
+    Gates: every request served, recall@10 within 0.01 of the sync
+    engine's, no new cache entry."""
+    import asyncio
+
+    from repro_torch import ServeConfig, recall
+    from repro_torch.kernels import ops
+    from repro_torch.serve import AsyncServingEngine, Request, Result
+
+    entries = engine.stats["compiles"]
+    before = ops.launch_counts()
+    cfg = ServeConfig(deadline_s=LM_ASYNC_DEADLINE_S,
+                      max_queue=LM_ASYNC_MAX_QUEUE, backpressure="block")
+
+    async def go():
+        async with AsyncServingEngine(index, executor=engine.executor,
+                                      serve=cfg, faults=False) as eng:
+            t0 = time.perf_counter()
+            res = await asyncio.gather(*(
+                eng.submit(Request(qv[i], los[i], his[i], k=LM_K))
+                for i in range(len(qv))), return_exceptions=True)
+            return res, time.perf_counter() - t0, eng.stats
+
+    res, secs, st = asyncio.run(go())
+    counts = {k: v - before[k] for k, v in ops.launch_counts().items()
+              if v - before[k]}
+    served = [r for r in res if isinstance(r, Result)]
+    rec = dict(served=len(served), requests=len(res), seconds=secs,
+               qps=len(served) / secs, flushes=st["flushes"],
+               latency_p50_ms=st["latency_p50"] * 1e3,
+               latency_p99_ms=st["latency_p99"] * 1e3,
+               new_cache_entries=engine.stats["compiles"] - entries,
+               launches=counts)
+    ok = len(served) == len(res)
+    if ok:
+        got = np.stack([r.ids for r in served])
+        rec["recall_at_10"] = recall(got, gt)
+        rec["ids_identical"], rec["id_overlap"] = id_agreement(got, sync_ids)
+        ok = abs(rec["recall_at_10"] - sync_recall) <= 0.01
+    ok &= rec["new_cache_entries"] == 0
+    print(f"lm serve async[AsyncServingEngine on the engine's executor, "
+          f"{json.dumps(vars(cfg))}]: {json.dumps(rec)}; sync "
+          f"recall@10 {sync_recall:.4f}" + ("" if ok else "  FAILED"),
+          flush=True)
+    if not ok and len(served) < len(res):
+        first = next(r for r in res if not isinstance(r, Result))
+        print(f"lm serve async: {len(res) - len(served)} requests not "
+              f"served: {first!r}", flush=True)
+    return rec, ok
 
 
 def roofline_phase(torch) -> tuple[list, dict, dict, bool]:
@@ -1912,6 +1993,149 @@ def baselines_phase(torch, index, queries, L, R, gt) -> tuple[dict, bool]:
     return out, ok
 
 
+def id_agreement(a, b) -> tuple[float, float]:
+    """(share of rows with identical ids, mean share of b's ids in a)."""
+    a, b = np.asarray(a), np.asarray(b)
+    same = float((a == b).all(axis=1).mean())
+    over = [len(set(x[x >= 0].tolist()) & set(y[y >= 0].tolist()))
+            / max(int((y >= 0).sum()), 1) for x, y in zip(a, b)]
+    return same, float(np.mean(over))
+
+
+def serve_slo_phase(torch, index, wl, gt) -> bool:
+    """``bench/serve_slo.py``'s three legs (its ``run_leg`` and defaults:
+    ``max_batch`` 32, 4 s a leg, deadline 0.25 s) through
+    ``AsyncServingEngine`` on a ``SearchExecutor(ef=64, k_bucket=10)``
+    warmed on this thread, over the main path's index with its 1,000 mixed
+    queries as the request pool (``gt``: their exact in-range top-10, rank
+    ids). Every launch count is set to 0 before each leg and read after
+    it. Prints per leg capacity, offered, each outcome, p50/p99, the
+    lateness of the timeouts delivered while a flush ran, and the launches
+    of gather_dist and the hop. Gates: lost 0 and resolved == offered in
+    every leg; no failed request outside the chaos leg; no cache entry
+    after warmup; the hop launched in every leg; the flush thread on this
+    thread's stream and card; the nominal leg's recall@10 within 0.01 of
+    the same requests served by a ``ServingEngine`` on that executor.
+    Prints the legs' whole records as one JSON line; returns whether
+    every gate passed."""
+    import asyncio
+
+    from repro_torch import SearchConfig, recall
+    from repro_torch.bench import serve_slo
+    from repro_torch.kernels import ops
+    from repro_torch.serve import Request, SearchExecutor, ServingEngine
+
+    t_phase = time.perf_counter()
+    dev = index.device
+    k = 10
+    ok = True
+    ex = SearchExecutor(index, SearchConfig(ef=serve_slo.EF, k_bucket=k),
+                        max_batch=serve_slo.MAX_BATCH)
+    warmed = ex.warmup(k_buckets=(k,))
+    cap = serve_slo.measure_capacity(ex, wl, k)
+    cfg = serve_slo.serve_config(cap, max_batch=serve_slo.MAX_BATCH,
+                                 deadline_s=serve_slo.DEADLINE_S)
+
+    def where():
+        return (torch.cuda.current_device(),
+                torch.cuda.current_stream(dev).cuda_stream)
+
+    worker = asyncio.run(asyncio.to_thread(where))
+    same_stream = worker == where()
+    print(f"serve_slo: executor max_batch={ex.max_batch} ef={serve_slo.EF}, "
+          f"{warmed} entries warmed on the main thread; capacity "
+          f"{cap:.1f} QPS (a full batch timed by CUDA events); "
+          f"{json.dumps(vars(cfg))}; flush thread (card, "
+          f"stream) {worker}, main {where()}"
+          + ("" if same_stream else "  DIFFER"), flush=True)
+    ok &= same_stream
+    gt_orig = index.original_ids(gt)
+    out = {"capacity_qps": cap, "serve": vars(cfg),
+           "same_stream": same_stream}
+    served: list = []
+    for name, (factor, seed, inject) in serve_slo.LEGS.items():
+        ops.reset_launch_counts()
+        leg = asyncio.run(serve_slo.run_leg(
+            index, ex, wl, qps=factor * cap,
+            duration_s=serve_slo.DURATION_S, serve_cfg=cfg,
+            faults=serve_slo.leg_faults(inject, serve_slo.DEADLINE_S),
+            k=k, seed=seed, served=served if name == "nominal" else None))
+        torch.cuda.synchronize(dev)
+        counts = ops.launch_counts()
+        leg["launches"] = {kk: v for kk, v in counts.items() if v}
+        bad = []
+        if leg["lost"] or leg["resolved"] != leg["offered"]:
+            bad.append("lost requests")
+        if leg["failed"] and name in SLO_GATE_LEGS:
+            bad.append("failed requests")
+        if not counts["hop"]:
+            bad.append("the hop never launched")
+        tl = leg["timeout_late_ms"]
+        print(f"serve_slo[{name}]: capacity {cap:.1f} QPS, target "
+              f"{leg['target_qps']:.1f}, offered {leg['offered']}, resolved "
+              f"{leg['resolved']}, lost {leg['lost']}; ok {leg['ok']}, shed "
+              f"{leg['shed']}, timeout {leg['timeout']}, rejected "
+              f"{leg['rejected']}, failed {leg['failed']}, shutdown "
+              f"{leg['shutdown']}; achieved {leg['achieved_qps']:.1f} QPS; "
+              f"p50 {leg['p50_ms']} ms, p99 {leg['p99_ms']} ms; timeouts "
+              f"delivered late by p50 {tl['p50']} ms, max {tl['max']} ms "
+              f"(n {tl['n']}); generator late p50 "
+              f"{leg['generator_late_ms']['p50']} ms, max "
+              f"{leg['generator_late_ms']['max']} ms; search a flush mean "
+              f"{leg['search_ms']['mean']} ms (n {leg['search_ms']['n']}); "
+              f"launches gather_dist "
+              f"{counts['gather_dist']}, hop {counts['hop']}"
+              + (f"; injected {json.dumps(leg['injected'])}"
+                 if "injected" in leg else "")
+              + ("" if not bad else f"  FAILED: {bad}"), flush=True)
+        ok &= not bad
+        out[name] = leg
+
+    # the nominal leg's served requests, again through the sync engine
+    pool = [i for i, _ in served]
+    got = np.stack([r.ids for _, r in served])
+    lo, hi = index.attrs[wl.L], index.attrs[wl.R]
+    timed = serve_slo.TimedExecutor(ex)
+    sync = ServingEngine(index, executor=timed, faults=False)
+    for i in pool:
+        sync.submit(Request(wl.queries[i], lo[i], hi[i], k=k))
+    want = np.stack([r.ids for r in sync.flush()])
+    sync.close()
+    # a flush's search three ways: the capacity run (the pool's first 32
+    # queries, nothing else running), the sync engine on the served
+    # requests (no event loop), and inside the loop (GIL shared with it)
+    alone_ms = serve_slo.MAX_BATCH / cap * 1e3
+    sync_ms = float(np.mean(timed.search_s)) * 1e3
+    print(f"serve_slo search a flush: alone {alone_ms:.1f} ms (the "
+          f"capacity run); ServingEngine on the nominal leg's served "
+          f"requests {sync_ms:.1f} ms ({len(timed.search_s)} batches of up "
+          f"to 32); in the loop, mean " + ", ".join(
+              f"{name} {out[name]['search_ms']['mean']:.1f} ms "
+              f"({out[name]['search_ms']['n']} flushes)"
+              for name in serve_slo.LEGS), flush=True)
+    out["search_ms_alone"] = alone_ms
+    out["search_ms_sync"] = sync_ms
+    r_async = recall(got, gt_orig[pool])
+    r_sync = recall(want, gt_orig[pool])
+    same, over = id_agreement(got, want)
+    post = ex.stats["compiles"] - ex.stats["warmup_compiles"]
+    good = abs(r_async - r_sync) <= 0.01 and post == 0
+    print(f"serve_slo[nominal] recall@10 of the {len(pool)} served requests "
+          f"{r_async:.4f}, the same requests through ServingEngine on that "
+          f"executor {r_sync:.4f}; ids identical in {same:.4f} of rows, mean "
+          f"overlap {over:.4f}; cache entries {ex.stats['compiles']}, "
+          f"{post} after warmup" + ("" if good else "  FAILED"), flush=True)
+    ok &= good
+    out["nominal"].update(recall=r_async, sync_recall=r_sync,
+                          ids_identical=same, id_overlap=over)
+    out["post_warmup_entries"] = post
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"serve_slo record: {json.dumps(out)}", flush=True)
+    print(f"phase[serve_slo]: {out['phase_s']:.1f} s", flush=True)
+    ex.close()
+    return ok
+
+
 def run(args):
     import torch
 
@@ -2090,6 +2314,9 @@ def run(args):
     # -- the paper's baselines and the multi-attribute search ---------------
     base_recs, good = baselines_phase(torch, index, wl.queries, L, R, gt)
     ok &= good
+
+    # -- the async serving loop under Poisson load: bench/serve_slo.py ------
+    ok &= serve_slo_phase(torch, index, wl, gt)
 
     # -- every kernel against its plain version, at main-path shapes --------
     records = {}

@@ -27,6 +27,7 @@ from repro_torch.core import (
     RangeGraphIndex,
     SearchConfig,
     SearchResult,
+    ServeConfig,
     StorageConfig,
     recall,
 )
@@ -37,6 +38,7 @@ __all__ = [
     "RangeGraphIndex",
     "SearchConfig",
     "SearchResult",
+    "ServeConfig",
     "StorageConfig",
     "recall",
 ]

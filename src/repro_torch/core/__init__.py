@@ -7,7 +7,7 @@ from repro_torch.core.build import (
     build_flat_graph,
     build_neighbor_table,
 )
-from repro_torch.core.config import SearchConfig
+from repro_torch.core.config import SearchConfig, ServeConfig
 from repro_torch.core.index import IndexCorruptionError, RangeGraphIndex, recall
 from repro_torch.core.search import SearchResult, search_improvised
 from repro_torch.core.storage import StorageConfig
@@ -18,6 +18,7 @@ __all__ = [
     "RangeGraphIndex",
     "SearchConfig",
     "SearchResult",
+    "ServeConfig",
     "StorageConfig",
     "build_flat_graph",
     "build_neighbor_table",

@@ -1,12 +1,13 @@
 """One frozen config for the query pipeline (the port's ``SearchConfig``)
 and the serving layer's bucket math.
 
-Mirrors ``repro/core/config.py:48-172, 247-280``: ``SearchConfig`` is
+Mirrors ``repro/core/config.py:48-240, 247-280``: ``SearchConfig`` is
 frozen and hashable (a key of ``serve/executor.py``'s cache), with ``k``
 per call, rounded up to a ``k_bucket`` multiple (:meth:`SearchConfig.
 bucket_k`); :func:`batch_buckets` / :func:`pick_bucket` /
 :func:`batch_bucket` give the power-of-two padded batch shapes. The
-backend tokens are the port's own:
+async serving loop's policy is :class:`ServeConfig` (fields, defaults and
+messages as ``repro``'s). The backend tokens are the port's own:
 
   * ``dist_impl`` / ``edge_impl``: ``"auto" | "cuda" | "torch"``;
   * ``hop_impl``: the same plus ``"composed"`` (the three dispatched ops
@@ -20,7 +21,8 @@ from __future__ import annotations
 import dataclasses
 
 __all__ = [
-    "SearchConfig", "batch_bucket", "batch_buckets", "pick_bucket",
+    "SearchConfig", "ServeConfig", "batch_bucket", "batch_buckets",
+    "pick_bucket",
 ]
 
 _METRICS = ("l2", "ip")
@@ -109,6 +111,83 @@ class SearchConfig:
         out = list(range(self.k_bucket, self.ef, self.k_bucket))
         out.append(self.ef)
         return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# Serving-loop policy
+# ---------------------------------------------------------------------------
+
+_BACKPRESSURE = ("reject", "block")
+
+
+@dataclasses.dataclass(frozen=True)
+class ServeConfig:
+    """Frozen policy knobs of the async serving loop (``serve/loop.py``).
+
+    Deadlines and overload semantics are a *deployment* property, distinct
+    from the query-pipeline knobs in :class:`SearchConfig` — one index can
+    serve interactive traffic (tight deadline, reject) and batch traffic
+    (loose deadline, block) with two loops sharing one warmed executor
+    (``SearchExecutor`` serialises their searches under its lock).
+
+    deadline_s:        default per-request deadline budget (submit ->
+                       terminal outcome); ``submit(deadline_s=...)``
+                       overrides per request.
+    max_queue:         admission bound on *queued* (not yet in-flight)
+                       requests — the backpressure trigger.
+    backpressure:      full-queue policy: ``"reject"`` fails the submit
+                       with ``OverloadedError`` immediately; ``"block"``
+                       awaits queue space (up to the request's deadline,
+                       then ``DeadlineExceededError``).
+    max_wait_s:        batch-formation linger cap: a non-full batch flushes
+                       once its oldest request has waited this long (under
+                       load the batch grows toward the bucket/``max_batch``
+                       within the linger window).
+    deadline_margin_s: flush early when the oldest queued request is within
+                       this margin of its deadline — the headroom reserved
+                       for the flush itself.
+    shed_expired:      shed already-expired queued requests with
+                       ``ShedError`` before they waste a flush (False keeps
+                       the per-request timeout — they resolve with
+                       ``DeadlineExceededError`` instead — but never sends
+                       an expired request to compute either way).
+    drain_timeout_s:   ``aclose(drain=True)`` serves pending requests for
+                       at most this long before failing the remainder fast
+                       with ``ShutdownError``.
+    """
+
+    deadline_s: float = 0.5
+    max_queue: int = 256
+    backpressure: str = "reject"
+    max_wait_s: float = 0.01
+    deadline_margin_s: float = 0.05
+    shed_expired: bool = True
+    drain_timeout_s: float = 5.0
+
+    def __post_init__(self):
+        if not float(self.deadline_s) > 0.0:
+            raise ValueError(f"deadline_s must be > 0, got {self.deadline_s}")
+        if int(self.max_queue) < 1:
+            raise ValueError(f"max_queue must be >= 1, got {self.max_queue}")
+        if self.backpressure not in _BACKPRESSURE:
+            raise ValueError(
+                f"backpressure {self.backpressure!r} not in {_BACKPRESSURE}"
+            )
+        if float(self.max_wait_s) < 0.0:
+            raise ValueError(
+                f"max_wait_s must be >= 0, got {self.max_wait_s}"
+            )
+        if float(self.deadline_margin_s) < 0.0:
+            raise ValueError(
+                f"deadline_margin_s must be >= 0, got {self.deadline_margin_s}"
+            )
+        if not float(self.drain_timeout_s) > 0.0:
+            raise ValueError(
+                f"drain_timeout_s must be > 0, got {self.drain_timeout_s}"
+            )
+
+    def replace(self, **kw) -> "ServeConfig":
+        return dataclasses.replace(self, **kw)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Serving stack of the port: executor (per-shape state) -> engine (sync
-queue). Port of ``repro/serve`` without ``AsyncServingEngine`` and its
-``ServeConfig`` (ROADMAP queue 1, item 8).
+queue) -> async loop (deadlines, admission, shedding). Port of
+``repro/serve``; the loop's policy is ``core/config.py::ServeConfig``.
 
 ``SearchExecutor`` owns the per-shape cache; ``ServingEngine`` is the
-synchronous caller-driven queue; ``serve/faults.py`` injects failures into
-it; ``serve/errors.py`` names every terminal outcome.
+synchronous caller-driven queue; ``AsyncServingEngine`` (``serve/loop.py``)
+the deadline-aware loop over the same executor; ``serve/faults.py``
+injects failures into both; ``serve/errors.py`` names every terminal
+outcome.
 """
 from repro_torch.serve.engine import Request, Result, ServingEngine
 from repro_torch.serve.errors import (
@@ -19,8 +21,10 @@ from repro_torch.serve.errors import (
 )
 from repro_torch.serve.executor import SearchExecutor
 from repro_torch.serve.faults import FaultConfig, FaultInjector
+from repro_torch.serve.loop import AsyncServingEngine
 
 __all__ = [
+    "AsyncServingEngine",
     "DeadlineExceededError",
     "FaultConfig",
     "FaultInjector",

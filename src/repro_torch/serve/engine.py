@@ -1,7 +1,6 @@
 """RFANN serving engine: request batching over a SearchExecutor (port of
-``repro/serve/engine.py``, without the async loop that shares its
-:func:`plan_flush` and :func:`run_search_batch` in ``repro``: ROADMAP queue
-1, item 8).
+``repro/serve/engine.py``; the async loop, ``serve/loop.py``, shares its
+:func:`plan_flush` and :func:`run_search_batch`).
 
 Mirrors a production vector-search frontend: requests (vector + value range
 + k) accumulate in a queue; ``flush`` groups them by k bucket (so one
@@ -34,8 +33,9 @@ Robustness contract (DESIGN.md §8):
 
 The flush-formation logic (:func:`plan_flush`) and the batch runner
 (:func:`run_search_batch`, with the fault-injection hooks of
-``serve/faults.py``) are module functions, as in ``repro``, where the
-async serving loop shares them.
+``serve/faults.py``) are module functions, as in ``repro``: the async
+serving loop (``serve/loop.py``) shares them, and runs the batch runner in
+a worker thread.
 
 Engine knobs arrive as ONE ``SearchConfig``.
 """
@@ -141,6 +141,10 @@ def run_search_batch(index, executor, reqs, kb, *, config=None, faults=None):
     hi = np.array([r.hi for r in reqs])
     L, R = index.ranks_of(lo, hi)
     res = executor.search_ranks(q, L, R, k=kb, config=config)
+    # outside the executor's lock: the result tensors are fresh, never a
+    # cache entry's buffers, so another thread's next search cannot write
+    # them; and every thread launches on the device's default stream
+    # (none sets another), so these copies wait for this search's kernels
     ids = res.ids.cpu().numpy()
     dists = res.dists.cpu().numpy()
     return index.original_ids(ids), dists

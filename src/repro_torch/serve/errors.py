@@ -9,9 +9,7 @@ Every request submitted to the serving layer resolves with EXACTLY ONE of:
     inverted range), so one malformed request can never poison a batch;
   * :class:`OverloadedError`, :class:`ShedError`,
     :class:`DeadlineExceededError` — the async loop's admission, shedding
-    and deadline outcomes (``repro/serve/loop.py``; the port's loop is
-    not written yet, ROADMAP queue 1 item 8, and the classes are kept so
-    the two packages name the same outcomes);
+    and deadline outcomes (``serve/loop.py``);
   * :class:`ShutdownError` — the engine closed before it could be served
     (pending requests are failed fast, never silently dropped);
   * any other exception the flush raised — failing only that flush's

@@ -18,12 +18,23 @@
   * **k buckets**: k rounds up to ``config.bucket_k(k)``; results slice
     back to the caller's k.
   * Batches above ``max_batch`` split into ``max_batch`` chunks.
+  * **One lock** per executor. ``repro`` calls a compiled program by
+    value, so two loops may share one warmed executor (``ServeConfig``'s
+    interactive and batch traffic on one index). Here a cache entry owns
+    its input buffers: two threads on one key could each copy in a batch
+    and then search the other's rows. ``search_ranks`` holds the lock
+    from the copy-in through the search to the slicing, and ``warmup``
+    and ``close`` hold it while they change the cache; the results it
+    returns are fresh tensors, never the entry's buffers, so what callers
+    do with them needs no lock.
 
 ``serve/engine.py::ServingEngine`` is queueing and per-request stats over
 this layer. The beam loop syncs with the host every ``ITER_BLOCK``
 iterations (``core/search.py``), so no CUDA graph is captured per key.
 """
 from __future__ import annotations
+
+import threading
 
 import numpy as np
 import torch
@@ -111,6 +122,8 @@ class SearchExecutor:
         else:
             self.faults = None
         self.closed = False
+        # held across copy-in -> search -> slicing (see the module doc)
+        self._lock = threading.Lock()
         self._cache: dict = {}   # (config, batch_bucket, k_bucket) -> program
         self.seen_k_buckets: set[int] = set()
         self.stats = {
@@ -153,16 +166,17 @@ class SearchExecutor:
         configs = tuple(configs) if configs is not None else (self.config,)
         bbs = tuple(batch_buckets) if batch_buckets is not None \
             else self.batch_buckets
-        before = self.stats["compiles"]
-        for cfg in configs:
-            kbs = tuple(k_buckets) if k_buckets is not None \
-                else cfg.k_buckets()
-            kbs = sorted({cfg.bucket_k(kb) for kb in kbs})
-            for bb in bbs:
-                bb = self.batch_bucket(int(bb))
-                for kb in kbs:
-                    self._compile(cfg, bb, kb, warmup=True)
-        return self.stats["compiles"] - before
+        with self._lock:
+            before = self.stats["compiles"]
+            for cfg in configs:
+                kbs = tuple(k_buckets) if k_buckets is not None \
+                    else cfg.k_buckets()
+                kbs = sorted({cfg.bucket_k(kb) for kb in kbs})
+                for bb in bbs:
+                    bb = self.batch_bucket(int(bb))
+                    for kb in kbs:
+                        self._compile(cfg, bb, kb, warmup=True)
+            return self.stats["compiles"] - before
 
     # -- execution -----------------------------------------------------------
     def search_ranks(self, queries, L, R, *, k: int,
@@ -174,7 +188,8 @@ class SearchExecutor:
         B >= 1 (batches beyond ``max_batch`` split). Returns a
         ``SearchResult`` of tensors on the index's device sliced back to
         ``[B, k]``: the same ids and distances as the direct
-        ``search_improvised`` call at the same config."""
+        ``search_improvised`` call at the same config. Thread-safe: calls
+        from several threads run one at a time."""
         if self.closed:
             raise ShutdownError("SearchExecutor is closed")
         if self.faults is not None:
@@ -192,15 +207,19 @@ class SearchExecutor:
         B = q.shape[0]
         if B < 1:
             raise ValueError("empty query batch")
-        parts = [
-            self._run(q[s : s + self.max_batch], L[s : s + self.max_batch],
-                      R[s : s + self.max_batch], kb, cfg)
-            for s in range(0, B, self.max_batch)
-        ]
+        with self._lock:
+            if self.closed:
+                raise ShutdownError("SearchExecutor is closed")
+            parts = [
+                self._run(q[s : s + self.max_batch],
+                          L[s : s + self.max_batch],
+                          R[s : s + self.max_batch], kb, cfg)
+                for s in range(0, B, self.max_batch)
+            ]
+            self.seen_k_buckets.add(kb)
         res = parts[0] if len(parts) == 1 else search_mod.SearchResult(
             *(torch.cat(xs, dim=0) for xs in zip(*parts))
         )
-        self.seen_k_buckets.add(kb)
         if kb == k:
             return res
         return res._replace(ids=res.ids[:, :k], dists=res.dists[:, :k])
@@ -208,10 +227,13 @@ class SearchExecutor:
     def close(self):
         """Release the cache and refuse further work (``search_ranks``
         raises ``ShutdownError``). Idempotent; stats survive."""
-        self.closed = True
-        self._cache.clear()
+        with self._lock:
+            self.closed = True
+            self._cache.clear()
 
     def _run(self, q, L, R, kb, cfg):
+        """One chunk of at most ``max_batch`` rows; the caller holds the
+        lock, since the entry's buffers are shared."""
         B = q.shape[0]
         bb = self.batch_bucket(B)
         prog = self._cache.get((cfg, bb, kb))
