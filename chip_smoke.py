@@ -53,6 +53,23 @@ the full-size run, one card). It
      without a hop launch, a flush thread on another stream or card, or
      the nominal leg's recall@10 more than 0.01 from the same requests
      served by a ``ServingEngine`` on that executor;
+  4d. drives sharded serving (``sharded_phase``, ``core/distributed.py``)
+     with every count at 0: ``build_sharded`` cuts the 1M cell into 4
+     contiguous attribute-rank shards of 250,000 (the same build config,
+     d = 128, no cut), then 4 gloo ranks sharing the card, spawned with
+     the kernels already built, run ``rfann_serve_step`` in three legs: a)
+     data 4 x model 1, the 1,000 mixed queries at ef 64 and 256 (ef 64
+     also timed on rank 0); b) the same shards with bf16 vectors; c) a
+     ragged int16 witness (n = 65,535 over 2 shards, bf16 + int16, and
+     its decoded-f32 twin, 64 queries) at data 2 x model 2. Prints build
+     seconds per shard against the single index's, stored bytes, each
+     rank's device, layouts and start-up, each leg's recall@10, QPS and
+     launches per rank (``sharded[...]`` lines). Gates: every rank's
+     [B, k] identical to the mesh-free path in this process; leg a's
+     recall at ef 64 within 0.01 of the mesh-free search all-plain, at ef
+     256 at least the single index's minus 0.05; ids in range, no padded
+     row; compact ids equal the decoded twin's; gather_dist and the hop
+     launched on every rank and leg, the bf16 hop body on b and c;
   5. holds every kernel against its plain version on the card at the main
      path's shapes (integers equal; distances within 1e-5 of the magnitude
      of their terms, ``‖q‖² + ‖x‖²``, since both sum d products in another
@@ -204,6 +221,13 @@ BASE_KERNELS = {          # method -> kernels that must launch on it
 # width: params f32, compute bf16, seeded random weights (no checkpoint is
 # in the repository).
 SLO_GATE_LEGS = ("nominal", "overload")  # legs where no flush may fail
+SHARDS = 4                # the sharded phase: shards of the 1M cell
+SHARD_RANKS = 4           # gloo ranks sharing the card
+SHARD_WITNESS_N = 65535   # ragged int16 witness: 32,768 + 32,767 rows
+SHARD_WITNESS_QUERIES = 64
+SHARD_EFS = (BASE_EF, QUALITY_EF)  # leg a; legs b and c at BASE_EF
+SHARD_RANK_TIMEOUT_S = 240.0  # the ranks' start-up and all their legs
+SHARD_MAX_S = 150.0       # what the phase may add to the smoke
 LM_ASYNC_DEADLINE_S = 30.0  # the lm phase's async pass: every request served
 LM_ASYNC_MAX_QUEUE = 1024
 LM_ARCH = "qwen3-0.6b"
@@ -2136,6 +2160,369 @@ def serve_slo_phase(torch, index, wl, gt) -> bool:
     return ok
 
 
+def sharded_rank(rank, world, root, meta, out) -> None:
+    """One rank of the sharded phase, in a process of its own (spawned):
+    one torch thread, the card shared with the other ranks, gloo over a
+    ``FileStore`` in ``root``, every wait bounded by a 60 s timeout. Loads
+    the kernels the parent built (fails if it had to compile one), its
+    shards and the queries from ``root``, then runs the legs through
+    ``rfann_serve_step``: a (data 4 x model 1, f32, ef 64 and 256, ef 64
+    also timed: CUDA events between barriers, 3 times), b (the same
+    layout, bf16 vectors, ef 64) and c (data 2 x model 2 on new groups,
+    the witness's compact shards and their decoded-f32 twins, ef 64).
+    Every launch count is set to 0 before each leg's step and read after
+    it. Puts one dict on ``out``: per leg the [B, k] ids and distances and
+    the counts, the rank's wall clock at entry and when ready, its
+    layouts, or the traceback."""
+    import traceback
+
+    res = {"rank": rank, "entered": time.time()}
+    try:
+        sys.path.insert(0, os.path.join(ROOT, "src"))
+        os.environ.setdefault("GLOO_SOCKET_IFNAME", "lo")  # no network
+        import datetime
+
+        import torch
+        import torch.distributed as dist
+
+        from repro_torch import SearchConfig, StorageConfig
+        from repro_torch.core import storage
+        from repro_torch.core.distributed import (ShardLayout,
+                                                  rfann_serve_step)
+        from repro_torch.kernels import _build, ops
+
+        torch.set_num_threads(1)
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        built = _build.build_all()
+        if built != 0.0:
+            raise RuntimeError(f"rank {rank} compiled kernels for "
+                               f"{built:.1f} s: the parent's were missing")
+        dist.init_process_group(
+            "gloo", store=dist.FileStore(os.path.join(root, "store"), world),
+            rank=rank, world_size=world,
+            timeout=datetime.timedelta(seconds=60))
+        try:
+            q = torch.load(os.path.join(root, "queries.pt"),
+                           map_location=dev)
+            legs = {}
+
+            def leg(name, layout, shard, qq, L, R, logn, ef, timed=False):
+                cfg = SearchConfig(ef=ef, expand_width=4)
+
+                def step():
+                    return rfann_serve_step(
+                        *shard, qq, L, R, layout=layout, logn=logn,
+                        m=meta["m"], k=meta["k"], config=cfg)
+
+                ops.reset_launch_counts()
+                ids, dists = step()
+                torch.cuda.synchronize(dev)
+                rec = {"ids": ids.cpu().numpy(), "dists": dists.cpu().numpy(),
+                       "launches": {kk: v for kk, v in
+                                    ops.launch_counts().items() if v},
+                       "layouts": {kk: v for kk, v in
+                                   ops.layout_counts().items() if v}}
+                if timed:
+                    rec["step_ms"] = []
+                    for _ in range(3):
+                        dist.barrier()
+                        e0 = torch.cuda.Event(enable_timing=True)
+                        e1 = torch.cuda.Event(enable_timing=True)
+                        e0.record()
+                        step()
+                        e1.record()
+                        torch.cuda.synchronize(dev)
+                        rec["step_ms"].append(e0.elapsed_time(e1))
+                legs[name] = rec
+
+            lay = ShardLayout(world, 1, device=dev)
+            a = torch.load(os.path.join(root, f"a{lay.data_rank}.pt"),
+                           map_location=dev)
+            res["ready"] = time.time()
+            for ef in SHARD_EFS:
+                leg(f"a ef={ef}", lay, (a["vec"], a["nbr"], a["bnd"]),
+                    q["q"], q["L"], q["R"], meta["logn_a"], ef,
+                    timed=ef == BASE_EF)
+            # the same shard's vectors re-encoded here, as the parent did
+            bf16 = storage.encode_vectors(a["vec"], StorageConfig.compact())
+            leg(f"b bf16 ef={BASE_EF}", lay, (bf16, a["nbr"], a["bnd"]),
+                q["q"], q["L"], q["R"], meta["logn_a"], BASE_EF)
+            del a, bf16
+            lay_c = ShardLayout(world // 2, 2, device=dev)
+            c = torch.load(os.path.join(root, f"c{lay_c.data_rank}.pt"),
+                           map_location=dev)
+            for name, vk, nk in (("c compact", "vec", "nbr"),
+                                 ("c decoded", "twin_vec", "twin_nbr")):
+                leg(name, lay_c, (c[vk], c[nk], c["bnd"]), q["wq"], q["wL"],
+                    q["wR"], meta["logn_c"], BASE_EF)
+            res.update(legs=legs, layouts=[repr(lay), repr(lay_c)],
+                       backend=lay.backend,
+                       device=f"{dev} {torch.cuda.get_device_name(dev)}")
+        finally:
+            dist.destroy_process_group()
+    except Exception:  # reported to the parent, which fails the phase
+        res["error"] = traceback.format_exc()
+    out.put(res)
+
+
+def sharded_phase(torch, index, vectors, attrs, wl, L, R, gt,
+                  single) -> tuple[dict, bool]:
+    """Sharded RFANN serving (``core/distributed.py``) on the 1M cell:
+    ``build_sharded`` into SHARDS = 4 contiguous attribute-rank shards
+    (``BuildConfig(m=16, ef_construction=64, chunk=BUILD_CHUNK)``, d =
+    128, no cut) with every count at 0, then SHARD_RANKS = 4 gloo ranks
+    sharing the card (``sharded_rank``) run three legs through
+    ``rfann_serve_step``: a, data 4 x model 1, the cell's 1,000 mixed
+    queries at ef 64 and 256; b, the same shards with bf16 vectors; c, a
+    ragged int16 witness (``vector_dataset(65,535, 128)`` over 2 shards
+    of 32,768 and 32,767 rows, ``StorageConfig.compact()`` and its
+    decoded-f32 twin, 64 queries) at data 2 x model 2. ``single``: the
+    single index's build seconds, fused recall@10 at ef 64 and 256 and
+    fused QPS. Gates: every rank's [B, k] equals, bit for bit, the
+    mesh-free path in this process (``shard_topk`` per shard, then
+    ``merge_topk``); leg a's recall at ef 64 within 0.01 of the mesh-free
+    search all-plain; at ef 256 at least the single index's minus 0.05;
+    every id inside its query's range and the witness's padded row never
+    returned; the compact ids equal the decoded twin's; the shards' rows
+    equal the index's (same ranks); the build launched the prune and
+    gather_dist, and every rank gather_dist and the hop on every leg, the
+    bf16 body on legs b and c compact. Returns the phase's record and
+    whether every gate passed."""
+    import multiprocessing
+    import queue
+    import shutil
+
+    from repro_torch import BuildConfig, SearchConfig, StorageConfig, recall
+    from repro_torch.core import storage
+    from repro_torch.core.distributed import (ShardedRangeIndex,
+                                              build_sharded, merge_topk,
+                                              shard_topk)
+    from repro_torch.data import vector_dataset
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    dev = index.device
+    k = 10
+    ok = True
+    cfg_b = BuildConfig(m=16, ef_construction=64, chunk=BUILD_CHUNK)
+    ops.reset_launch_counts()
+    per_shard = []
+    t0 = time.perf_counter()
+    sh = build_sharded(vectors, attrs, SHARDS, cfg_b, shard_seconds=per_shard)
+    torch.cuda.synchronize(dev)
+    build_s = time.perf_counter() - t0
+    build_counts = ops.launch_counts()
+    bounds = sh.bounds.tolist()
+    same_rows = all(torch.equal(sh.vectors[s, :hi - lo + 1],
+                                index.vectors[lo:hi + 1])
+                    for s, (lo, hi) in enumerate(bounds))
+    good = (same_rows and build_counts["prune"] > 0
+            and build_counts["gather_dist"] > 0)
+    shard_bytes = sh.nbytes // SHARDS
+    print(f"sharded build: n={index.n} S={SHARDS} d={index.dim} m=16 efc=64 "
+          f"chunk={BUILD_CHUNK}: {build_s:.1f} s (per shard "
+          f"{', '.join(f'{x:.1f}' for x in per_shard)} s; the single index "
+          f"{single['build_s']:.1f} s); bounds {bounds}; launches prune="
+          f"{build_counts['prune']} gather_dist={build_counts['gather_dist']}"
+          f"; nbytes {shard_bytes} a shard, {sh.nbytes} in all; the shards' "
+          f"rows are the index's ranks: {same_rows}"
+          + ("" if good else "  FAILED"), flush=True)
+    ok &= good
+    sh_b = ShardedRangeIndex(
+        storage.encode_vectors(sh.vectors, StorageConfig.compact()),
+        sh.neighbors, sh.bounds, sh.logn, sh.m)
+
+    # the ragged int16 witness and its decoded-f32 twin
+    wn = SHARD_WITNESS_N
+    wv, wattrs, wq = vector_dataset(wn, index.dim, seed=0, n_clusters=64,
+                                    queries=SHARD_WITNESS_QUERIES)
+    wc = build_sharded(wv, wattrs[:, 0], 2, cfg_b, StorageConfig.compact())
+    twin = ShardedRangeIndex(wc.vectors.float(),
+                             storage.decode_neighbors(wc.neighbors),
+                             wc.bounds, wc.logn, wc.m)
+    rng = np.random.default_rng(2)
+    wL = rng.integers(0, wn // 2, SHARD_WITNESS_QUERIES).astype(np.int32)
+    wR = (wL + rng.integers(64, wn // 2, SHARD_WITNESS_QUERIES)).clip(
+        max=wn - 1).astype(np.int32)
+    wlo, whi = wc.bounds[1].tolist()
+    per = -(-wn // 2)
+    good = (wc.vectors.dtype == torch.bfloat16
+            and wc.neighbors.dtype == torch.int16 and wc.bounds.tolist()
+            == [[0, per - 1], [per, wn - 1]])
+    print(f"sharded witness: n={wn} S=2 compact: vectors {wc.vectors.dtype},"
+          f" neighbors {wc.neighbors.dtype}, bounds {wc.bounds.tolist()} "
+          f"(shard 1 padded by {wc.vectors.shape[1] - (whi - wlo + 1)} row); "
+          f"{SHARD_WITNESS_QUERIES} queries, of which "
+          f"{int((wR < wlo).sum())} miss shard 1 (empty clip)"
+          + ("" if good else "  FAILED"), flush=True)
+    ok &= good
+
+    # the mesh-free path on the card, in this process
+    q = torch.as_tensor(wl.queries, device=dev, dtype=torch.float32)
+    Lt = torch.as_tensor(L, device=dev, dtype=torch.int32)
+    Rt = torch.as_tensor(R, device=dev, dtype=torch.int32)
+    wqt = torch.as_tensor(wq, device=dev, dtype=torch.float32)
+    wLt = torch.as_tensor(wL, device=dev)
+    wRt = torch.as_tensor(wR, device=dev)
+
+    def mesh_free(shd, qq, Lq, Rq, cfg):
+        outs = [shard_topk(*shd.shard(s, dev), qq, Lq, Rq, logn=shd.logn,
+                           m=shd.m, k=k, config=cfg)
+                for s in range(shd.n_shards)]
+        i, d = merge_topk(torch.stack([o[0] for o in outs]),
+                          torch.stack([o[1] for o in outs]), k)
+        return i.cpu().numpy(), d.cpu().numpy()
+
+    cfg = SearchConfig(ef=BASE_EF, expand_width=4)
+    want = {f"a ef={ef}": mesh_free(sh, q, Lt, Rt, cfg.replace(ef=ef))
+            for ef in SHARD_EFS}
+    want[f"b bf16 ef={BASE_EF}"] = mesh_free(sh_b, q, Lt, Rt, cfg)
+    want["c compact"] = mesh_free(wc, wqt, wLt, wRt, cfg)
+    want["c decoded"] = mesh_free(twin, wqt, wLt, wRt, cfg)
+    plain_ids, _ = mesh_free(sh, q, Lt, Rt, cfg.replace(
+        hop_impl="torch", edge_impl="torch", dist_impl="torch"))
+
+    # the ranks' inputs, in the checkout's build directory
+    t0 = time.perf_counter()
+    root = os.path.join(ROOT, "build", "sharded")
+    shutil.rmtree(root, ignore_errors=True)
+    os.makedirs(root)
+    torch.save({"q": q.cpu(), "L": Lt.cpu(), "R": Rt.cpu(), "wq": wqt.cpu(),
+                "wL": wLt.cpu(), "wR": wRt.cpu()},
+               os.path.join(root, "queries.pt"))
+    for s in range(SHARDS):
+        torch.save({"vec": sh.vectors[s].cpu(), "nbr": sh.neighbors[s].cpu(),
+                    "bnd": sh.bounds[s].cpu()}, os.path.join(root, f"a{s}.pt"))
+    for s in range(2):
+        torch.save({"vec": wc.vectors[s].cpu(), "nbr": wc.neighbors[s].cpu(),
+                    "twin_vec": twin.vectors[s].cpu(),
+                    "twin_nbr": twin.neighbors[s].cpu(),
+                    "bnd": wc.bounds[s].cpu()}, os.path.join(root, f"c{s}.pt"))
+    meta = {"m": sh.m, "k": k, "logn_a": sh.logn, "logn_c": wc.logn}
+    del sh_b, twin, wc
+    save_s = time.perf_counter() - t0
+
+    # the ranks: spawned (this process holds a CUDA context), the kernels
+    # already built here
+    ctx = multiprocessing.get_context("spawn")
+    out = ctx.Queue()
+    t_spawn = time.time()
+    procs = [ctx.Process(target=sharded_rank,
+                         args=(r, SHARD_RANKS, root, meta, out))
+             for r in range(SHARD_RANKS)]
+    for p in procs:
+        p.start()
+    ranks = {}
+    deadline = time.time() + SHARD_RANK_TIMEOUT_S
+    try:
+        for _ in procs:
+            r = out.get(timeout=max(1.0, deadline - time.time()))
+            ranks[r["rank"]] = r
+    except queue.Empty:
+        print(f"sharded: ranks {sorted(set(range(SHARD_RANKS)) - set(ranks))}"
+              f" gave no answer within {SHARD_RANK_TIMEOUT_S:.0f} s  FAILED",
+              flush=True)
+        ok = False
+    finally:
+        for p in procs:
+            p.join(timeout=30)
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+    shutil.rmtree(root, ignore_errors=True)
+    for r, res in sorted(ranks.items()):
+        if "error" in res:
+            print(f"sharded rank {r} FAILED:\n{res['error']}", flush=True)
+            ok = False
+    ranks = {r: res for r, res in ranks.items() if "error" not in res}
+    if len(ranks) != SHARD_RANKS:
+        return {"ranks_answered": len(ranks)}, False
+    r0 = ranks[0]
+    print(f"sharded ranks: inputs written in {save_s:.1f} s; backend "
+          f"{r0['backend']}, "
+          + "; ".join(f"rank {r}: {res['device']}, {res['layouts']}, ready "
+                      f"{res['ready'] - t_spawn:.1f} s after spawn (entered "
+                      f"{res['entered'] - t_spawn:.1f} s)"
+                      for r, res in sorted(ranks.items())), flush=True)
+
+    # gates: each leg on every rank against the mesh-free path
+    ranges = {"a": (L, R), "b": (L, R), "c": (wL, wR)}
+    rec = {"build_s": build_s, "build_shard_s": per_shard,
+           "single_build_s": single["build_s"],
+           "build_launches": {kk: v for kk, v in build_counts.items() if v},
+           "nbytes": sh.nbytes, "nbytes_shard": shard_bytes,
+           "backend": r0["backend"], "layouts": r0["layouts"],
+           "startup_s": [ranks[r]["ready"] - t_spawn for r in sorted(ranks)],
+           "inputs_written_s": save_s,
+           "legs": {}}
+    for name, (wi, wd) in want.items():
+        lo_r, hi_r = ranges[name[0]]
+        same = all(np.array_equal(res["legs"][name]["ids"], wi)
+                   and np.array_equal(res["legs"][name]["dists"], wd)
+                   for res in ranks.values())
+        in_range = all(((row[row >= 0] >= a) & (row[row >= 0] <= b)).all()
+                       for row, a, b in zip(wi, lo_r, hi_r))
+        body = "bf16" if name.startswith(("b", "c compact")) else "f32"
+        counts = [res["legs"][name]["launches"] for _, res in
+                  sorted(ranks.items())]
+        layouts = [res["legs"][name]["layouts"] for _, res in
+                   sorted(ranks.items())]
+        launched = all(c.get("gather_dist", 0) > 0 and c.get("hop", 0) > 0
+                       for c in counts)
+        body_ok = all(lay.get(f"hop[{body}]", 0) > 0 for lay in layouts)
+        leg = {"same_as_mesh_free": same, "in_range": in_range,
+               "max_id": int(wi.max()), "launches": counts,
+               "layouts": layouts}
+        good = same and in_range and launched and body_ok
+        if name.startswith("c"):
+            good &= int(wi.max()) <= wn - 1
+        else:
+            leg["recall"] = recall(wi, gt)
+        extra = ""
+        if name == f"a ef={BASE_EF}":
+            leg["plain_recall"] = recall(plain_ids, gt)
+            ms = float(np.median(r0["legs"][name]["step_ms"]))
+            leg.update(step_ms=r0["legs"][name]["step_ms"],
+                       qps=len(wi) / ms * 1e3)
+            good &= abs(leg["recall"] - leg["plain_recall"]) <= 0.01
+            extra = (f"; all-plain mesh-free recall@10 "
+                     f"{leg['plain_recall']:.4f}; the single index "
+                     f"{single['recall'][BASE_EF]:.4f}; step median "
+                     f"{ms:.2f} ms of {r0['legs'][name]['step_ms']} on rank "
+                     f"0 = {leg['qps']:.1f} QPS (the single index's "
+                     f"search[fused] {single['qps']:.1f} QPS)")
+        if name == f"a ef={QUALITY_EF}":
+            floor = single["recall"][QUALITY_EF] - 0.05
+            good &= leg["recall"] >= floor
+            extra = (f"; the single index {single['recall'][QUALITY_EF]:.4f}"
+                     f" (floor {floor:.4f})")
+        if name == "c compact":
+            leg["equals_decoded"] = bool(np.array_equal(
+                wi, want["c decoded"][0]))
+            good &= leg["equals_decoded"]
+            extra = f"; ids equal the decoded twin's: {leg['equals_decoded']}"
+        print(f"sharded[{name}]: {len(wi)} queries, every rank's [B, k] "
+              f"equals the mesh-free path: {same}; ids in range: {in_range}"
+              f"; max id {leg['max_id']}"
+              + (f"; recall@10 {leg['recall']:.4f}" if "recall" in leg
+                 else "") + extra
+              + f"; launches per rank (gather_dist, hop, hop[{body}]) "
+              + ", ".join(f"({c.get('gather_dist', 0)}, {c.get('hop', 0)}, "
+                          f"{lay.get(f'hop[{body}]', 0)})"
+                          for c, lay in zip(counts, layouts))
+              + ("" if good else "  FAILED"), flush=True)
+        ok &= good
+        rec["legs"][name] = leg
+    rec["phase_s"] = time.perf_counter() - t_phase
+    print(f"sharded record: {json.dumps(rec)}", flush=True)
+    print(f"phase[sharded]: {rec['phase_s']:.1f} s (of at most "
+          f"{SHARD_MAX_S:.0f})", flush=True)
+    if rec["phase_s"] > SHARD_MAX_S:
+        print(f"phase[sharded]: over its {SHARD_MAX_S:.0f} s", flush=True)
+    return rec, ok
+
+
 def run(args):
     import torch
 
@@ -2318,6 +2705,16 @@ def run(args):
     # -- the async serving loop under Poisson load: bench/serve_slo.py ------
     ok &= serve_slo_phase(torch, index, wl, gt)
 
+    # -- sharded serving: core/distributed.py over 4 gloo ranks -------------
+    shard_rec, good = sharded_phase(
+        torch, index, vectors, attrs[:, 0], wl, L, R, gt, single={
+            "build_s": build_seconds,
+            "recall": {BASE_EF: recall(searches["fused"][1], gt),
+                       QUALITY_EF: recall(
+                           searches[f"fused ef={QUALITY_EF}"][1], gt)},
+            "qps": len(wl.queries) / searches["fused"][2]})
+    ok &= good
+
     # -- every kernel against its plain version, at main-path shapes --------
     records = {}
     table = index.vectors
@@ -2422,6 +2819,13 @@ def run(args):
             meth: r["launches"].get(name, 0)
             for meth, r in base_recs.items()
             if isinstance(r, dict) and "launches" in r}
+        if name in ("gather_dist", "hop"):
+            kernels[-1]["sharded_launches"] = {
+                "build": shard_rec.get("build_launches", {}).get(name, 0),
+                "ranks": [sum(leg["launches"][r].get(name, 0)
+                              for leg in shard_rec.get("legs", {}).values())
+                          for r in range(SHARD_RANKS)]
+                if shard_rec.get("legs") else None}
         if name == "select_edges":
             kernels[-1]["multiattr"] = {
                 meth: r["edge_select"] for meth, r in base_recs.items()

@@ -12,6 +12,10 @@ bf16/f16, int8, PQ with an int8 rerank sidecar, split neighbor ids); the
 search kernels and the prune decode the stored rows in registers.
 ``repro_torch.core.baselines`` and ``repro_torch.core.multiattr`` hold the
 paper's comparison methods and its multi-attribute search;
+``repro_torch.core.distributed`` the index cut into contiguous attribute-
+rank shards (``build_sharded``) and its serve step over the ranks of a
+``torch.distributed`` process group (``ShardLayout``,
+``rfann_serve_step``);
 ``repro_torch.bench`` the roofline and build-path benchmarks and the
 paper's figure and table scripts.
 
@@ -28,7 +32,14 @@ from repro_torch.core import (
     SearchConfig,
     SearchResult,
     ServeConfig,
+    ShardedRangeIndex,
+    ShardLayout,
     StorageConfig,
+    build_sharded,
+    make_serve_step,
+    merge_topk,
+    rfann_serve_step,
+    shard_topk,
     recall,
 )
 
@@ -39,6 +50,13 @@ __all__ = [
     "SearchConfig",
     "SearchResult",
     "ServeConfig",
+    "ShardLayout",
+    "ShardedRangeIndex",
     "StorageConfig",
+    "build_sharded",
+    "make_serve_step",
+    "merge_topk",
     "recall",
+    "rfann_serve_step",
+    "shard_topk",
 ]

@@ -157,7 +157,10 @@ def beam_search(
     visited, _ = bitset.test_and_set(bitset.make(B, n, device=dev), e, valid)
     n_hops = torch.zeros((B,), dtype=torch.int32, device=dev)
     n_dists = valid.sum(1, dtype=torch.int32)
-    active = torch.ones((B,), dtype=torch.bool, device=dev)
+    # a query with no valid entry (an empty range) starts inactive, so a
+    # batch of only such queries runs no iteration; the first iteration
+    # would find nothing to expand and deactivate it all the same
+    active = valid.any(1)
     two_lists = result_filter_fn is not None
     if two_lists:
         ok = result_filter_fn(e.clamp_min(0)) & valid
