@@ -22,6 +22,24 @@ the full-size run, one card). It
      plain torch; recall@10 >= 0.70 for the workload at ef=256 and for
      queries drawn around the data's own centres at ef=64 (see
      MIN_RECALL), and prints why wide ranges lose recall;
+  4a. sets each dispatch and storage knob of ``core/knobs.py`` in this
+     process in turn (``knobs_phase``; the smoke refuses to start when
+     one is set in its environment) and searches the same 1,000 queries
+     at ef = 64 with every impl "auto", counts at 0 before each leg:
+     RTORCH_IMPL=torch launches nothing and gives the all-plain ids;
+     RTORCH_IMPL=cuda and RTORCH_HOP_IMPL=composed launch select_edges and
+     gather_dist, no hop, and give the fused ids; with
+     RTORCH_EDGE_IMPL=argsort the composed hop launches no select_edges
+     and the fused one ignores it; RTORCH_PRUNE_IMPL=legacy builds n =
+     32,768 with no prune launch and the table of a build with the plain
+     prune; RTORCH_STORAGE=compact builds bf16 / int16 tables; unset
+     again, the fused path's counts and ids (``knobs[...]`` lines). Then
+     the oracles (``oracles_phase``): the seed engine
+     (``core/search_ref.py``) on 64 of the queries against
+     ``beam_search(expand_width=1)``: ids and hops identical to the fused
+     hop's, everything identical to the all-plain path's; Algorithm 1
+     literally and the argsort formulation against the edge kernel at the
+     frontier's shape (F = 4,000): ids identical (``oracles[...]``);
   4b. drives the paper's comparison methods on the same index and
      queries at ef = 64 (``baselines_phase``), each with every count at 0
      just before it and once more with every impl pinned to plain torch:
@@ -146,12 +164,24 @@ the full-size run, one card). It
      count), with the library call's time beside each
      (``pairwise_library``); then the prune's codec bodies and
      ``bench/buildpath.py``;
+  11c. runs ``bench/hotpath.py --smoke`` (``hotpath_phase``): the seed,
+     composed and fused hop steps at smoke shapes (composed and fused
+     outputs asserted identical), and the launch-plan autotune of
+     gather_dist, the hop, the prune and edge_select at the main paths'
+     full shapes (``kernels/autotune.py::PROBES``), every candidate held
+     against its default plan's outputs (a refused one fails); prints
+     each kind's pick, its time and the default plan's
+     (``hotpath[...]``), then the three new phases' seconds;
   12. prints one JSON line of kernel records (each codec layout as e.g.
      ``gather_dist[int8]``; flash_attention with its launches on the lm
-     serve path) and, last, the device line.
+     serve path; gather_dist, gather_dist[int8], select_edges, the hop and
+     the prune with their autotune pick and default plan's time at each
+     probe) and, last, the device line.
 
 It exits non-zero, printing no result, when there is no CUDA card, when
-the repo's sources are not beside it, or when any phase fails.
+the repo's sources are not beside it, when a dispatch or storage knob
+(``RTORCH_IMPL``, ``RTORCH_*_IMPL``, ``RTORCH_STORAGE``) is set in its
+environment, or when any phase fails.
 """
 from __future__ import annotations
 
@@ -228,6 +258,9 @@ SHARD_WITNESS_QUERIES = 64
 SHARD_EFS = (BASE_EF, QUALITY_EF)  # leg a; legs b and c at BASE_EF
 SHARD_RANK_TIMEOUT_S = 240.0  # the ranks' start-up and all their legs
 SHARD_MAX_S = 150.0       # what the phase may add to the smoke
+KNOB_BUILD_N = 32768      # the knobs phase's builds (prune, storage legs)
+ORACLE_QUERIES_REF = 64   # the seed engine's queries: a dense bool[B, n] map
+NEW_PHASES_MAX_S = 150.0  # what the knobs, oracles and hotpath phases may add
 LM_ASYNC_DEADLINE_S = 30.0  # the lm phase's async pass: every request served
 LM_ASYNC_MAX_QUEUE = 1024
 LM_ARCH = "qwen3-0.6b"
@@ -1147,7 +1180,7 @@ def prune_record(torch, table, cand, du, m, shape) -> dict:
     from repro_torch.bench.common import prune_parity
     from repro_torch.core import storage
     from repro_torch.kernels import ref
-    from repro_torch.kernels.prune import prune_cuda, smem_plan, warps_of
+    from repro_torch.kernels.prune import prune_cuda, smem_plan
 
     B, C = cand.shape
     d = storage.table_dim(table)
@@ -1174,9 +1207,9 @@ def prune_record(torch, table, cand, du, m, shape) -> dict:
                 ms=kms, plain_ms=pms, bound_ms=bms, bound_by=by,
                 rows_differ=differ, near_ties=ties,
                 staged_rows=plan.staged, smem_bytes=plan.bytes,
-                warps=warps_of(plan),
+                warps=plan.warps,
                 regime=f"{regime}: one CTA a node, {plan.staged} staged "
-                       f"rows, {plan.bytes} B and {warps_of(plan)} warps",
+                       f"rows, {plan.bytes} B and {plan.warps} warps",
                 rows_distinct=union, rows_live=live, dots=dots, shape=shape,
                 kept=got)
 
@@ -2523,16 +2556,252 @@ def sharded_phase(torch, index, vectors, attrs, wl, L, R, gt,
     return rec, ok
 
 
+class knob_env:
+    """Set RTORCH_* knobs in this process for a block, restoring them
+    after (read through the registry, ``core/knobs.py``)."""
+
+    def __init__(self, env: dict):
+        self.env = env
+
+    def __enter__(self):
+        from repro_torch.core import knobs
+
+        self.old = {k: knobs.raw(k) for k in self.env}
+        os.environ.update(self.env)
+
+    def __exit__(self, *exc):
+        for k, v in self.old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+# knobs[...] legs: (name, env, the ids they must equal, the launch check)
+KNOB_LEGS = (
+    ("RTORCH_IMPL=torch", {"RTORCH_IMPL": "torch"}, "plain",
+     lambda c: not any(c.values())),
+    ("RTORCH_IMPL=cuda", {"RTORCH_IMPL": "cuda"}, "fused",
+     lambda c: c["hop"] == 0 and c["select_edges"] > 0
+     and c["gather_dist"] > 0),
+    ("RTORCH_HOP_IMPL=composed", {"RTORCH_HOP_IMPL": "composed"}, "fused",
+     lambda c: c["hop"] == 0 and c["select_edges"] > 0
+     and c["gather_dist"] > 0),
+    # the edge knob moves the composed hop's edge selection; the fused
+    # kernel has no per-op backend (as repro's megakernel)
+    ("RTORCH_HOP_IMPL=composed RTORCH_EDGE_IMPL=argsort",
+     {"RTORCH_HOP_IMPL": "composed", "RTORCH_EDGE_IMPL": "argsort"},
+     "fused", lambda c: c["hop"] == 0 and c["select_edges"] == 0
+     and c["gather_dist"] > 0),
+    ("RTORCH_EDGE_IMPL=argsort", {"RTORCH_EDGE_IMPL": "argsort"}, "fused",
+     lambda c: c["hop"] > 0 and c["select_edges"] == 0),
+)
+
+
+def knobs_phase(torch, index, wl, lo_val, hi_val, fused_ids,
+                plain_ids) -> bool:
+    """Each dispatch and storage knob set in this process in turn, on the
+    1M index's 1,000 mixed queries at ef 64 with every impl "auto": the
+    launch counts and ids each leg must show (KNOB_LEGS); the prune knob
+    and the storage knob on builds of KNOB_BUILD_N; then, every knob unset
+    again, the counts and ids of the fused path."""
+    from repro_torch import BuildConfig, RangeGraphIndex, SearchConfig
+    from repro_torch.data import vector_dataset
+    from repro_torch.kernels import ops
+
+    t_phase = time.perf_counter()
+    cfg = SearchConfig(ef=BASE_EF, expand_width=4)
+
+    def search():
+        ops.reset_launch_counts()
+        res = index.search(wl.queries, lo_val, hi_val, k=10, config=cfg)
+        ids = res.ids.cpu().numpy()
+        return ids, ops.launch_counts()
+
+    base_ids, base = search()
+    ok = np.array_equal(base_ids, fused_ids)
+    print(f"knobs[none set]: launches {json.dumps(base)}; ids "
+          f"{'equal' if ok else 'DIFFER from'} the fused search's",
+          flush=True)
+    want = {"fused": fused_ids, "plain": plain_ids}
+    for name, env, ref_name, check in KNOB_LEGS:
+        with knob_env(env):
+            ids, counts = search()
+        same = np.array_equal(ids, want[ref_name])
+        good = same and check(counts)
+        print(f"knobs[{name}]: launches {json.dumps(counts)}; ids "
+              f"{'equal' if same else 'DIFFER from'} the {ref_name} "
+              "search's" + ("" if good else "  FAILED"), flush=True)
+        ok &= good
+    vectors, attrs, _ = vector_dataset(KNOB_BUILD_N, 128, seed=0,
+                                       n_clusters=64, attr_kind="uniform")
+    bcfg = BuildConfig(m=16, ef_construction=64, chunk=BUILD_CHUNK)
+    ops.reset_launch_counts()
+    plain_prune = RangeGraphIndex.build(vectors, attrs[:, 0], bcfg,
+                                        prune_impl="torch")
+    with knob_env({"RTORCH_PRUNE_IMPL": "legacy"}):
+        ops.reset_launch_counts()
+        legacy = RangeGraphIndex.build(vectors, attrs[:, 0], bcfg)
+        counts = ops.launch_counts()
+    same = torch.equal(legacy.neighbors, plain_prune.neighbors)
+    good = same and counts["prune"] == 0 and counts["gather_dist"] > 0
+    print(f"knobs[RTORCH_PRUNE_IMPL=legacy, build n={KNOB_BUILD_N}]: "
+          f"launches {json.dumps(counts)}; table "
+          f"{'equals' if same else 'DIFFERS from'} the build with the "
+          "plain prune" + ("" if good else "  FAILED"), flush=True)
+    ok &= good
+    with knob_env({"RTORCH_STORAGE": "compact"}):
+        compact = RangeGraphIndex.build(vectors, attrs[:, 0], bcfg)
+    dtypes = (compact.vectors.dtype, compact.neighbors.dtype)
+    good = dtypes == (torch.bfloat16, torch.int16)
+    print(f"knobs[RTORCH_STORAGE=compact, build n={KNOB_BUILD_N}]: tables "
+          f"{dtypes[0]} / {dtypes[1]}" + ("" if good else "  FAILED"),
+          flush=True)
+    ok &= good
+    del plain_prune, legacy, compact
+    ids, counts = search()
+    good = np.array_equal(ids, fused_ids) and counts == base
+    print(f"knobs[none set, after]: launches {json.dumps(counts)}; "
+          f"{'the fused path' if good else 'NOT the fused path'}",
+          flush=True)
+    ok &= good
+    print(f"phase[knobs]: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return bool(ok)
+
+
+def oracles_phase(torch, index, wl, L, R) -> bool:
+    """The seed engine (``core/search_ref.py``) on ORACLE_QUERIES_REF of the
+    1M queries against ``beam_search(expand_width=1)`` on the card: ids
+    identical to the fused hop's, everything identical to the all-plain
+    path's; and Algorithm 1 literally (``select_edges_reference``) and the
+    argsort formulation against the edge kernel on the frontier's
+    shapes."""
+    from repro_torch import SearchConfig
+    from repro_torch.core import edge_select, search_ref
+    from repro_torch.core.search import range_entry_ids
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.edge_select import select_edges_cuda
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda", 0)
+    B, n, m = ORACLE_QUERIES_REF, index.n, index.m
+    q = torch.as_tensor(wl.queries[:B], device=dev)
+    Lt = torch.as_tensor(L[:B], device=dev, dtype=torch.int32)
+    Rt = torch.as_tensor(R[:B], device=dev, dtype=torch.int32)
+    ent = range_entry_ids(Lt, Rt.clamp_max(n - 1), n)
+    ent = torch.where((ent >= Lt[:, None]) & (ent <= Rt[:, None]), ent, -1)
+
+    def nbr_fn(u):
+        return edge_select.select_edges_batch(index.neighbors, u, Lt, Rt,
+                                              logn=index.logn, m_out=m)
+
+    t0 = time.perf_counter()
+    want = search_ref.beam_search_reference(index.vectors, q, ent, nbr_fn,
+                                            ef=BASE_EF, k=10)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ops.reset_launch_counts()
+    fused = index.search_ranks(q, Lt, Rt, k=10, config=SearchConfig(
+        ef=BASE_EF, expand_width=1, hop_impl="cuda"))
+    hops = ops.launch_counts()["hop"]
+    plain = index.search_ranks(q, Lt, Rt, k=10, config=SearchConfig(
+        ef=BASE_EF, expand_width=1, edge_impl="torch", dist_impl="torch"))
+    fused_same = torch.equal(fused.ids, want.ids) and \
+        torch.equal(fused.n_hops, want.n_hops)
+    plain_same = all(torch.equal(a, b) for a, b in zip(plain, want))
+    fin = torch.isfinite(want.dists)
+    err = float((fused.dists - want.dists)[fin].abs().max()) \
+        if bool(fin.any()) else 0.0
+    good = fused_same and plain_same and hops > 0
+    print(f"oracles[beam_search_reference, {B} queries, ef={BASE_EF}, "
+          f"{ref_s:.1f} s]: W=1 fused hop ({hops} launches) ids and hops "
+          f"{'identical' if fused_same else 'DIFFER'} (distances max |diff| "
+          f"{err:.3g}); W=1 all-plain "
+          f"{'identical, distances too' if plain_same else 'DIFFERS'}"
+          + ("" if good else "  FAILED"), flush=True)
+    ok = good
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    fr = frontier(torch, index, wl.queries, L, R, 4, gen)
+    us, Lw, Rw = fr["us"], fr["Lw"], fr["Rw"]
+    kernel = select_edges_cuda(index.neighbors, us, Lw, Rw, logn=index.logn,
+                               m_out=m)
+    argsort = edge_select.select_edges_batch(index.neighbors, us, Lw, Rw,
+                                             logn=index.logn, m_out=m)
+    rows = index.neighbors[us.long()].cpu()
+    u_h, L_h, R_h, k_h = (t.cpu().tolist() for t in (us, Lw, Rw, kernel))
+    literal = sum(
+        edge_select.select_edges_reference(
+            rows[f], u_h[f], L_h[f], R_h[f], logn=index.logn, m_out=m)
+        != [x for x in k_h[f] if x >= 0] for f in range(len(u_h)))
+    good = torch.equal(kernel, argsort) and literal == 0
+    print(f"oracles[edge_select, F={len(u_h)}]: argsort "
+          f"{'identical' if torch.equal(kernel, argsort) else 'DIFFERS'}; "
+          f"Algorithm 1 differs on {literal} rows"
+          + ("" if good else "  FAILED"), flush=True)
+    ok &= good
+    print(f"phase[oracles]: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return bool(ok)
+
+
+# the kernels line's entries and the autotune records they take
+AUTOTUNE_OF = {"gather_dist": "gather_dist", "gather_dist[int8]":
+               "gather_dist_codec", "select_edges": "edge_select",
+               "hop": "hop", "prune": "prune"}
+
+
+def hotpath_phase(torch) -> tuple[dict, bool]:
+    """``bench/hotpath.py --smoke`` on the card: the steps at smoke shapes
+    (composed and fused hops asserted identical), and the autotune section
+    at the full probe shapes (``kernels/autotune.py::PROBES``), every
+    candidate held against its default plan's outputs: a refused one
+    fails the phase. Returns the autotune records by kind."""
+    from repro_torch.bench import hotpath
+
+    t_phase = time.perf_counter()
+    payload = hotpath.main(["--smoke", "--out", os.path.join(
+        ROOT, "build", "BENCH_torch_hotpath_smoke.json")])
+    records = payload["autotune"]["records"]
+    ok = payload["hop_fused"]["outputs_identical"]
+    for kind, recs in records.items():
+        for r in recs:
+            good = not r["refused"] and len(r["candidates"]) >= 1
+            ok &= good
+            print(f"hotpath[autotune {kind}, {r['probe']}]: pick "
+                  f"{json.dumps(r['best'])} {r['best_ms']:.4f} ms; default "
+                  f"{json.dumps(r['default'])} {r['default_ms']:.4f} ms; "
+                  "candidates " + json.dumps(
+                      [[c["params"], round(c["ms"], 4)]
+                       for c in r["candidates"]])
+                  + f"; refused {json.dumps(r['refused'])}"
+                  + ("" if good else "  FAILED"), flush=True)
+    for key in ("expansion_step", "edge_select_step", "hop_fused"):
+        print(f"hotpath[{key}]: {json.dumps(payload[key])}", flush=True)
+    print(f"phase[hotpath]: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return records, bool(ok)
+
+
 def run(args):
     import torch
 
-    if not torch.cuda.is_available():
-        fail("torch.cuda.is_available() is false: this check needs a card")
     src = os.path.join(ROOT, "src")
     if not os.path.isdir(os.path.join(src, "repro_torch", "csrc")):
         fail(f"no src/repro_torch beside {os.path.basename(__file__)}: run "
              "it from the root of a checkout")
     sys.path.insert(0, src)
+    from repro_torch.core import knobs
+
+    forced = {k.name: knobs.raw(k.name) for k in knobs.REGISTRY
+              if k.section in ("dispatch", "storage")
+              and knobs.raw(k.name) is not None}
+    if forced:
+        fail(f"dispatch or storage knobs are set in the environment "
+             f"({forced}): the main path would not run what it names")
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is false: this check needs a card")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2645,8 +2914,10 @@ def run(args):
               f"{len(ids) / secs:.1f} QPS; recall@10 {r:.4f}; mean hops "
               f"{float(res.n_hops.float().mean()):.1f}; mean distances "
               f"{float(res.n_dists.float().mean()):.1f}", flush=True)
+    plain_ids = {}
     for name, c in plain_runs.items():
         _, ids, secs = timed_search(c)
+        plain_ids[name] = ids
         r_plain = recall(ids, gt)
         r = recall(searches[name][1], gt)
         print(f"search[{name}, plain torch on the card]: recall@10 "
@@ -2697,6 +2968,13 @@ def run(args):
 
     profile_search(torch, lambda: index.search(
         wl.queries, lo_val, hi_val, k=10, config=runs["fused"]))
+
+    # -- the knob registry, each knob set in turn; then the oracles ----------
+    t_new = time.perf_counter()
+    ok &= knobs_phase(torch, index, wl, lo_val, hi_val,
+                      searches["fused"][1], plain_ids["fused"])
+    ok &= oracles_phase(torch, index, wl, L, R)
+    new_phases_s = time.perf_counter() - t_new
 
     # -- the paper's baselines and the multi-attribute search ---------------
     base_recs, good = baselines_phase(torch, index, wl.queries, L, R, gt)
@@ -3060,6 +3338,23 @@ def run(args):
     for entry in kernels:
         if entry["name"] == "prune":
             entry["buildpath_launches"] = bp_counts["prune"]
+
+    # -- bench/hotpath.py: the steps, and the launch plans' autotune --------
+    t_new = time.perf_counter()
+    tuned, good = hotpath_phase(torch)
+    ok &= good
+    new_phases_s += time.perf_counter() - t_new
+    for entry in kernels:
+        kind = AUTOTUNE_OF.get(entry["name"])
+        if kind is not None:
+            entry["autotune"] = {
+                r["probe"]: {"pick": r["best"], "pick_ms": r["best_ms"],
+                             "default": r["default"],
+                             "default_ms": r["default_ms"],
+                             "candidates": len(r["candidates"])}
+                for r in tuned[kind]}
+    print(f"phase[knobs + oracles + hotpath]: {new_phases_s:.1f} s "
+          f"(budget {NEW_PHASES_MAX_S:.0f} s)", flush=True)
     if not ok:
         fail("a check failed (see above)")
     print(json.dumps({"kernels": kernels}), flush=True)

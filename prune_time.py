@@ -16,9 +16,10 @@ prune_designs,flash,pairwise,pairwise_exact,gather,hop,edge,search``
     its int8 encoding, C = 128 (a brute level) and C = 48 (the reverse
     pass's width); m = 16. Reports whether the kept ids equal the plain
     version's, and the tree's plan for the shape (``smem_plan``).
-  * prune_designs (this tree's prune only): the prune's regimes against
-    each other on the same inputs, each plan forced in place of
-    ``smem_plan``'s: C = 80 at d = 128 (block, table); C = 144 at d =
+  * prune_designs (this tree's prune only, a tree whose
+    ``prune_cuda`` takes a plan ``override``): the prune's regimes
+    against each other on the same inputs, each plan forced by
+    ``prune.smem_plan``'s override: C = 80 at d = 128 (block, table); C = 144 at d =
     1,024 with random rows (table, partial: one CTA staging the rows that
     fit) and with du scaled by 0.93, so that more rows stay live a sweep,
     as in the lm build's chunk; and the partial regime where it is the
@@ -152,17 +153,17 @@ def prune_part(out, dev, g):
 def prune_designs_part(out, dev, g):
     from repro_torch.kernels import prune
 
-    def forced(C, d, regime):
-        if regime == "block":
-            return prune.Plan(C, prune.smem_bytes(C, d, C), regime)
+    def forced(C, d, regime, warps):
+        """The plan override of one design (``prune.smem_plan``)."""
+        o = {} if warps is None else {"warps": warps}
         if regime == "table":
-            return prune.Plan(min(C, prune.TABLE_K),
-                              prune.table_bytes(C, d), regime)
+            return {**o, "regime": "table"}
+        if regime == "block":
+            return {**o, "regime": "block", "staged": C}
         base = prune.smem_bytes(C, d, 0)
         staged = (prune.SMEM_LIMIT - base) // ((d + 3) // 4 * 16)
-        return prune.Plan(staged, prune.smem_bytes(C, d, staged), regime)
+        return {**o, "regime": "block", "staged": staged}
 
-    plan_of, warps_of = prune.smem_plan, prune.warps_of
     for name, n, d, B, C, scale, designs in (
             ("C80", 1_000_000, 128, 16384, 80, 1.0, ("block", "table")),
             ("d1024_C144", 131072, 1024, 4096, 144, 1.0,
@@ -186,18 +187,14 @@ def prune_designs_part(out, dev, g):
             out[f"{name}_plain_ms"] = time_ms(
                 lambda: ref.prune(cand, du, x, m=16), iters=3)
         for regime in designs:
-            plan = forced(C, d, regime)
-            prune.smem_plan = lambda C_, d_, plan=plan: plan
             for warps in (None, 4, 8):
-                prune.warps_of = warps_of if warps is None else (
-                    lambda p, w=warps: w)
+                o = forced(C, d, regime, warps)
                 tag = f"{name}_{regime}" + (f"_w{warps}" if warps else "")
-                got = prune.prune_cuda(cand, du, x, m=16)
+                got = prune.prune_cuda(cand, du, x, m=16, override=o)
                 out[f"{tag}_same_as_plain"] = bool(torch.equal(got, want))
                 out[f"{tag}_ms"] = time_ms(
-                    lambda: prune.prune_cuda(cand, du, x, m=16))
-                out[f"{tag}_plan"] = list(plan) + [prune.warps_of(plan)]
-        prune.smem_plan, prune.warps_of = plan_of, warps_of
+                    lambda: prune.prune_cuda(cand, du, x, m=16, override=o))
+                out[f"{tag}_plan"] = list(prune.smem_plan(C, d, o))
         del x, cand, du, want
         torch.cuda.empty_cache()
 

@@ -42,6 +42,7 @@ import torch
 
 from repro_torch.bench import common
 from repro_torch.core import build as build_mod
+from repro_torch.core import knobs as knobs_mod
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops
 
@@ -216,7 +217,7 @@ def main(argv=None) -> int:
                    "chunks": list(chunks), "iters": args.iters,
                    "e2e_n": args.e2e_n, "backends": list(backends)},
         "auto_chunk": {
-            "budget_mb": build_mod._CHUNK_BUDGET_BYTES >> 20,
+            "budget_mb": knobs_mod.get_int("RTORCH_CHUNK_BUDGET_MB"),
             "search": build_mod.resolve_chunk(
                 build_mod.BuildConfig(), args.m + args.efc, args.d,
                 floor=build_mod._SEARCH_CHUNK_FLOOR),

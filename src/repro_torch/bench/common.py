@@ -35,7 +35,7 @@ __all__ = [
     "elemental_table", "prune_parity", "PRUNE_TIE_RTOL", "PRUNE_MAX_DIFF",
     "BENCH_DATASETS", "BASE_N", "DEFAULT_K", "Workload", "make_workload",
     "dataset_n", "build_config", "build_index", "make_searcher", "measure",
-    "write_record", "sync",
+    "write_record", "sync", "carry_smoke_ref", "update_smoke_ref",
 ]
 
 # CPU-scale stand-ins for the paper's datasets (Table 1), as in ``repro``
@@ -53,6 +53,7 @@ CUDA_BUILD_CHUNK = 32768
 _CACHE: dict = {}
 
 ROOT = pathlib.Path(__file__).resolve().parents[3]
+SLEEP_CYCLES = 100_000_000  # a head start for the host: ~50 ms at 1.98 GHz
 PRUNE_TIE_RTOL = 1e-5     # prune: a keep decision within this of du
 PRUNE_MAX_DIFF = 1e-3     # prune: share of rows allowed to differ
 
@@ -94,18 +95,28 @@ def device_info(device: torch.device) -> dict:
 
 
 def time_calls(fn, device: torch.device, *, iters=20, warmup=3,
-               reduce="mean") -> float:
+               reduce="mean", reset=None) -> float:
     """Seconds per call of ``fn(i)`` (``i`` the call index, so a call
     that updates its inputs in place can take a fresh copy), after
     ``warmup`` calls: the mean over ``iters`` calls, or with
     ``reduce="min"`` the least single call. CUDA events on the card, the
-    host clock on the CPU."""
+    host clock on the CPU.
+
+    ``reset(i)``, where given, runs before every call, outside what is
+    timed (an input the call updates in place, an L2 flush): each call is
+    then timed alone, and on the card its events are recorded behind a
+    sleep kernel, so the host is ahead of the card and no host time (the
+    wrapper's, reset's) falls between a pair."""
     for i in range(warmup):
+        if reset is not None:
+            reset(i)
         fn(i)
     cuda = device.type == "cuda"
     if cuda:
         torch.cuda.synchronize(device)
-    if reduce == "mean":
+    if reduce not in ("mean", "min"):
+        raise ValueError(f"unknown reduce {reduce!r}")
+    if reduce == "mean" and reset is None:
         if cuda:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
@@ -119,23 +130,31 @@ def time_calls(fn, device: torch.device, *, iters=20, warmup=3,
         for i in range(iters):
             fn(warmup + i)
         return (time.perf_counter() - t0) / iters
-    if reduce != "min":
-        raise ValueError(f"unknown reduce {reduce!r}")
-    best = float("inf")
-    for i in range(iters):
-        if cuda:
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
+    if cuda:
+        pairs = [(torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+                 for _ in range(iters)]
+        if reset is not None:
+            torch.cuda._sleep(SLEEP_CYCLES)
+        for i, (start, end) in enumerate(pairs):
+            if reset is not None:
+                reset(warmup + i)
             start.record()
             fn(warmup + i)
             end.record()
-            torch.cuda.synchronize(device)
-            best = min(best, start.elapsed_time(end) / 1e3)
-        else:
+            if reset is None:  # reduce="min": one call at a time
+                torch.cuda.synchronize(device)
+        torch.cuda.synchronize(device)
+        secs = [a.elapsed_time(b) / 1e3 for a, b in pairs]
+    else:
+        secs = []
+        for i in range(iters):
+            if reset is not None:
+                reset(warmup + i)
             t0 = time.perf_counter()
             fn(warmup + i)
-            best = min(best, time.perf_counter() - t0)
-    return best
+            secs.append(time.perf_counter() - t0)
+    return min(secs) if reduce == "min" else sum(secs) / len(secs)
 
 
 def elemental_table(rng, n, m, logn):
@@ -210,9 +229,10 @@ def build_config(device: torch.device, **kw) -> BuildConfig:
 def build_index(name: str, *, n: int | None = None, m=16, efc=64, seed=0,
                 storage=None, device=None) -> RangeGraphIndex:
     """The named dataset's index (cached by every argument): ``storage``
-    an optional ``StorageConfig``, ``n`` the scale override."""
+    an optional ``StorageConfig`` (None: ``storage.default_config()``),
+    ``n`` the scale override."""
     dev = resolve_device(device)
-    storage = storage or storage_mod.StorageConfig()
+    storage = storage or storage_mod.default_config()
     nn = dataset_n(name, n)
     key = (name, nn, m, efc, seed, storage, str(dev))
     if key not in _CACHE:
@@ -286,3 +306,33 @@ def write_record(name: str, rows, columns, device: torch.device, *,
         json.dump(doc, f, indent=1,
                   default=lambda o: o.item() if hasattr(o, "item") else str(o))
     return path
+
+
+def carry_smoke_ref(payload: dict, committed_path: str) -> dict:
+    """Keep the committed record's ``smoke_ref`` on a full run
+    (``repro``'s ``benchmarks/common.py::carry_smoke_ref``): those ratios
+    were measured at smoke shapes, which a full run does not measure;
+    ``--smoke --update-smoke-ref`` refreshes them."""
+    if os.path.exists(committed_path):
+        try:
+            with open(committed_path) as f:
+                old = json.load(f)
+        except (OSError, json.JSONDecodeError):
+            return payload
+        if isinstance(old.get("smoke_ref"), dict):
+            payload.setdefault("smoke_ref", old["smoke_ref"])
+    return payload
+
+
+def update_smoke_ref(committed_path: str, refs: dict) -> bool:
+    """Write a smoke run's ratios into the committed record's
+    ``smoke_ref`` (``--update-smoke-ref``); False when there is no
+    committed record."""
+    if not os.path.exists(committed_path):
+        return False
+    with open(committed_path) as f:
+        doc = json.load(f)
+    doc["smoke_ref"] = {k: round(float(v), 4) for k, v in refs.items()}
+    with open(committed_path, "w") as f:
+        json.dump(doc, f, indent=1)
+    return True

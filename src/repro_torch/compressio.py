@@ -5,19 +5,21 @@ available and fall back to stdlib ``zlib`` otherwise. Reads auto-detect the
 codec from the frame magic, so artifacts written under one codec load under
 the other environment as long as the writer's codec is importable.
 
-The port's copy of ``repro/compressio.py``, with two differences:
+The port's copy of ``repro/compressio.py``, with one difference:
 ``zstandard`` is imported where it is used (so ``import repro_torch`` works
-on hosts without it), and the default level is the fixed 3 (the port has no
-environment knobs).
+on hosts without it). The default level is the ``RTORCH_COMPRESS_LEVEL``
+knob (3 when unset), as ``repro``'s is ``REPRO_COMPRESS_LEVEL``; an
+explicit ``level=`` wins.
 """
 from __future__ import annotations
 
 import zlib
 
+from repro_torch.core import knobs as knobs_mod
+
 __all__ = ["compress", "decompress"]
 
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
-DEFAULT_LEVEL = 3
 
 
 def _zstandard():
@@ -30,7 +32,7 @@ def _zstandard():
 
 def compress(data: bytes, level: int | None = None) -> bytes:
     if level is None:
-        level = DEFAULT_LEVEL
+        level = knobs_mod.get_int("RTORCH_COMPRESS_LEVEL")
     zstd = _zstandard()
     if zstd is not None:
         return zstd.ZstdCompressor(level=level).compress(data)

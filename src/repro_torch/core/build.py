@@ -27,6 +27,7 @@ import time
 import numpy as np
 import torch
 
+from repro_torch.core import knobs as knobs_mod
 from repro_torch.core import search as search_mod
 from repro_torch.core import storage as storage_mod
 from repro_torch.core.config import SearchConfig
@@ -52,10 +53,10 @@ class BuildConfig:
 
 
 # The JAX package sizes chunks against a host cache budget (16 MiB by
-# default); the port keeps the same rule and default so its CPU runs chunk
-# like the reference. On the card a larger explicit ``BuildConfig.chunk``
-# amortizes launches better.
-_CHUNK_BUDGET_BYTES = 16 << 20
+# default, its REPRO_CHUNK_BUDGET_MB knob); the port keeps the same rule,
+# default and knob (RTORCH_CHUNK_BUDGET_MB) so its CPU runs chunk like the
+# reference. On the card a larger explicit ``BuildConfig.chunk`` amortizes
+# launches better.
 _CHUNK_MIN, _CHUNK_MAX = 256, 8192
 # search levels never auto-tune their chunk below this floor (their sibling
 # beam search amortizes with batch size)
@@ -64,10 +65,10 @@ _SEARCH_CHUNK_FLOOR = 2048
 
 def auto_chunk(C: int, d: int, *, budget_bytes: int | None = None) -> int:
     """Per-level build chunk: the largest power of two keeping the gathered
-    ``[chunk, C, d]`` f32 candidate block inside the budget, clamped to
-    [256, 8192]."""
+    ``[chunk, C, d]`` f32 candidate block inside the budget (default the
+    ``RTORCH_CHUNK_BUDGET_MB`` knob, 16 MiB), clamped to [256, 8192]."""
     if budget_bytes is None:
-        budget_bytes = _CHUNK_BUDGET_BYTES
+        budget_bytes = knobs_mod.get_int("RTORCH_CHUNK_BUDGET_MB") << 20
     per_row = max(int(C) * int(d) * 4, 1)
     target = max(budget_bytes // per_row, 1)
     p = 1

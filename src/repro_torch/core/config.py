@@ -9,12 +9,15 @@ bucket_k`); :func:`batch_buckets` / :func:`pick_bucket` /
 async serving loop's policy is :class:`ServeConfig` (fields, defaults and
 messages as ``repro``'s). The backend tokens are the port's own:
 
-  * ``dist_impl`` / ``edge_impl``: ``"auto" | "cuda" | "torch"``;
+  * ``dist_impl`` / ``edge_impl``: ``"auto" | "cuda" | "torch"``, and
+    for ``edge_impl`` also ``"argsort"`` (the argsort formulation of
+    ``core/edge_select.py``, an oracle);
   * ``hop_impl``: the same plus ``"composed"`` (the three dispatched ops
     chained, the fused hop's bit-identical oracle).
 
-``"auto"`` resolves by where the tensors live: the hand-written kernel on a
-CUDA tensor, the plain torch version on a CPU tensor (``kernels/ops.py``).
+``"auto"`` resolves by the ``RTORCH_*_IMPL`` knobs, then by where the
+tensors live: the hand-written kernel on a CUDA tensor, the plain torch
+version on a CPU tensor (``kernels/ops.py::default_impl``).
 """
 from __future__ import annotations
 
@@ -27,7 +30,7 @@ __all__ = [
 
 _METRICS = ("l2", "ip")
 _DIST_IMPLS = ("auto", "cuda", "torch")
-_EDGE_IMPLS = ("auto", "cuda", "torch")
+_EDGE_IMPLS = ("auto", "cuda", "torch", "argsort")
 _HOP_IMPLS = ("auto", "cuda", "torch", "composed")
 
 
@@ -42,7 +45,7 @@ class SearchConfig:
     expand_width: nodes expanded per query per beam iteration (the engine
                   clamps it to ``ef``).
     dist_impl:    gather-distance backend ("auto" | "cuda" | "torch").
-    edge_impl:    edge-selection backend (same set).
+    edge_impl:    edge-selection backend (same set, and "argsort").
     hop_impl:     whole-hop backend ("auto" | "cuda" | "torch" |
                   "composed"); an explicit ``dist_impl``/``edge_impl`` pin
                   routes the hop through "composed".

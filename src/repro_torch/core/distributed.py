@@ -158,10 +158,10 @@ def build_shard(sorted_vectors: np.ndarray, s: int, n_shards: int,
     last row (an all-padding shard repeats the last vector and gets
     ``hi < lo``). Returns ``(vectors, neighbors, (lo, hi))`` on
     ``device``: the stored vectors and the neighbor table in the codec
-    dtypes of ``storage`` (default ``StorageConfig()``). A rank can build
-    its own shard with it."""
+    dtypes of ``storage`` (default ``storage.default_config()``). A rank
+    can build its own shard with it."""
     cfg = cfg or build_mod.BuildConfig()
-    storage = storage or storage_mod.StorageConfig()
+    storage = storage or storage_mod.default_config()
     vs = sorted_vectors
     n = vs.shape[0]
     per = -(-n // n_shards)
@@ -191,14 +191,15 @@ def build_sharded(
     with ``core/build.py::build_neighbor_table``, on the card unless
     ``device="cpu"`` (:func:`build_shard`).
 
-    ``storage=None`` means ``StorageConfig()``: ``repro`` reads its
-    ``REPRO_STORAGE`` knob here, and the port has no knob registry yet.
-    Raises ``ValueError`` for codec storage (int8, PQ, split ids) and for
-    ``n_shards`` outside ``[1, n]``. ``shard_seconds``, if a list,
+    ``storage=None`` means ``storage.default_config()``, which the
+    ``RTORCH_STORAGE`` knob moves, as ``repro`` reads ``REPRO_STORAGE``
+    here. Raises ``ValueError`` for codec storage (int8, PQ, split ids),
+    whether passed or from the knob, and for ``n_shards`` outside
+    ``[1, n]``. ``shard_seconds``, if a list,
     collects each shard's build seconds (the device synchronised).
     """
     cfg = cfg or build_mod.BuildConfig()
-    storage = storage or storage_mod.StorageConfig()
+    storage = storage or storage_mod.default_config()
     _check_storage(storage)
     n = vectors.shape[0]
     if not 1 <= n_shards <= n:

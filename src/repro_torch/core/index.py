@@ -144,12 +144,14 @@ class RangeGraphIndex:
         searches' gather-distance backend (same set; not saved with the
         index); ``level_times``, if a list, collects per-level timings
         (``build_neighbor_table``). The build runs in f32; ``storage``
-        (default f32 / int32) then encodes the neighbor ids, the rerank
-        sidecar and the vectors, in that order, as ``repro`` does."""
+        (default ``storage.default_config()``: f32 / int32 unless
+        ``RTORCH_STORAGE`` says otherwise) then encodes the neighbor ids,
+        the rerank sidecar and the vectors, in that order, as ``repro``
+        does."""
         cfg = cfg or build_mod.BuildConfig()
         if prune_impl is not None:
             cfg = dataclasses.replace(cfg, prune_impl=prune_impl)
-        storage = storage or storage_mod.StorageConfig()
+        storage = storage or storage_mod.default_config()
         dev = resolve_device(device)
         vectors = np.asarray(vectors, np.float32)
         attrs = np.asarray(attrs, np.float64)

@@ -33,28 +33,32 @@ def seg_bounds(u, lay, logn):
 
 
 def scan_mask(u, L, R, logn, *, skip_layers: bool = True):
-    """Layer-scan mask of Algorithm 1 for one object: bool[logn + 1],
-    ``mask[lay]`` True iff u's edges at ``lay`` are scanned for ``[L, R]``.
+    """Layer-scan mask of Algorithm 1: bool[..., logn + 1],
+    ``mask[..., lay]`` True iff u's edges at ``lay`` are scanned for
+    ``[L, R]``. ``u``, ``L`` and ``R`` are ints or int32 tensors that
+    broadcast together (one object, or a batch of them).
 
     ``skip_layers=False`` is the naive variant that scans every layer down
     to the first segment fully covered by the range.
     """
-    lays = torch.arange(logn + 1, dtype=torch.int32)
     u = torch.as_tensor(u, dtype=torch.int32)
-    lo, hi = seg_bounds(u, lays, logn)
-    inter_lo = torch.maximum(lo, torch.as_tensor(L, dtype=torch.int32))
-    inter_hi = torch.minimum(hi, torch.as_tensor(R, dtype=torch.int32))
+    dev = u.device
+    lays = torch.arange(logn + 1, dtype=torch.int32, device=dev)
+    L = torch.as_tensor(L, dtype=torch.int32, device=dev)[..., None]
+    R = torch.as_tensor(R, dtype=torch.int32, device=dev)[..., None]
+    lo, hi = seg_bounds(u[..., None], lays, logn)
+    inter_lo = torch.maximum(lo, L)
+    inter_hi = torch.minimum(hi, R)
     terminal = (lo >= L) & (hi <= R)
-    # argmax of an all-False vector is 0, as in jnp.argmax
-    first_term = int(torch.argmax(terminal.to(torch.int8))) \
-        if bool(terminal.any()) else 0
+    # argmax of an all-False row is 0, as in jnp.argmax (torch.argmax also
+    # returns the first of equal maxima)
+    first_term = torch.argmax(terminal.to(torch.int8), dim=-1, keepdim=True)
     reachable = lays <= first_term
     if not skip_layers:
         return reachable
-    child_lo = torch.roll(inter_lo, -1)
-    child_hi = torch.roll(inter_hi, -1)
-    skip = (child_lo == inter_lo) & (child_hi == inter_hi)
-    skip[logn] = False  # leaves have no child
+    child_lo = torch.roll(inter_lo, -1, dims=-1)
+    child_hi = torch.roll(inter_hi, -1, dims=-1)
+    skip = (child_lo == inter_lo) & (child_hi == inter_hi) & (lays < logn)
     return reachable & ~skip
 
 

@@ -32,8 +32,11 @@ from typing import Any, NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.core import knobs as knobs_mod
+
 __all__ = [
     "StorageConfig",
+    "default_config",
     "np_dtype",
     "resolve_neighbor_dtype",
     "resolve_pq_m",
@@ -184,6 +187,28 @@ class StorageConfig:
                    rerank_dtype="int8", pq_m=pq_m)
 
 
+def default_config() -> StorageConfig:
+    """The ``StorageConfig`` of callers that pass ``storage=None``
+    (``repro/core/storage.py::default_config``): ``RTORCH_STORAGE``
+    "compact" (bf16 + narrow ids), "f16" (f16 + narrow ids), "int8"
+    (scaled int8 + split offsets), "pq" (PQ + split offsets + int8
+    rerank), "f32" or unset (full precision); anything else raises."""
+    env = (knobs_mod.get_str("RTORCH_STORAGE") or "").strip().lower()
+    if env in ("", "f32", "float32"):
+        return StorageConfig()
+    if env == "compact":
+        return StorageConfig.compact()
+    if env in ("f16", "float16"):
+        return StorageConfig.compact("float16")
+    if env == "int8":
+        return StorageConfig.int8()
+    if env == "pq":
+        return StorageConfig.pq()
+    raise ValueError(
+        f"RTORCH_STORAGE={env!r}: expected 'compact', 'f16', 'int8', 'pq' "
+        "or 'f32'")
+
+
 def np_dtype(name: str) -> np.dtype:
     """Resolve a serialized dtype string; "bfloat16" resolves to its
     ``uint16`` bit pattern."""
@@ -195,14 +220,14 @@ def np_dtype(name: str) -> np.dtype:
 def resolve_neighbor_dtype(n: int, spec: str = "auto") -> np.dtype:
     """Narrowest id dtype for an ``n``-object table under ``spec``; for
     "split" the dtype of the wide (absolute-id) layers."""
-    fits16 = n - 1 <= np.iinfo(np.int16).max
+    fits16 = n - 1 <= np.iinfo(np.int16).max  # allow[R5]: id capacity
     if spec == "int32":
         return _NP_DTYPES["int32"]
     if spec == "int16":
         if not fits16:
             raise ValueError(
                 f"neighbor_dtype=int16 cannot hold ids up to {n - 1} "
-                f"(max {np.iinfo(np.int16).max})"
+                f"(max {np.iinfo(np.int16).max})"  # allow[R5]: id capacity
             )
         return _NP_DTYPES["int16"]
     if spec in ("auto", "split"):

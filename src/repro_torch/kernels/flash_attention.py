@@ -180,7 +180,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
         plan = plan_tc(B, Hq, Hkv, Sq, Skv, Dh)
         entry, extra = _entry_tc(), (plan.DP, plan.P, plan.RQ, *plan.grid)
     else:
-        if -(-Sq // _BQ) > 65535:
+        if -(-Sq // _BQ) > 65535:  # allow[R5]: the grid's y limit
             raise ValueError(f"Sq={Sq} needs more than 65,535 query tiles")
         strides = [t.stride()[:3] for t in (q, k, v)]
         entry, extra = _entry(), ()

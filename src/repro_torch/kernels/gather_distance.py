@@ -178,9 +178,9 @@ def _cdiv(a: int, b: int) -> int:
     return -(-a // b)
 
 
-@functools.lru_cache(maxsize=256)
 def plan(B: int, M: int, layout: str, d: int, vec: bool,
-         hop: tuple[int, int] | None = None) -> Plan:
+         hop: tuple[int, int] | None = None,
+         override: dict | None = None) -> Plan:
     """How gather_distance.cu covers B query rows of M slots over a table
     of ``layout`` rows of width d (``vec``: :func:`rows_vec`), or, with
     ``hop=(W, K)``, how hop.cu runs B queries of W frontier rows with K
@@ -193,24 +193,50 @@ def plan(B: int, M: int, layout: str, d: int, vec: bool,
     slots a task (a task loads its query row whatever its slots); so a
     CTA serves WARPS / split query rows. The hop: one CTA a query (its
     visited row is its own), WARPS warps where B >= FILL, else
-    MAX_WARPS. Raises ``ValueError`` where the shared memory does not
-    fit (d above 14,000 or so for the gather's 4 query rows a CTA), or a
-    hop's slots or W * K edge ids do not."""
+    MAX_WARPS.
+
+    ``override`` replaces the rule's choice: ``{"split": s}`` for the
+    gather (its slots follow, ``cdiv(M, s)``), ``{"warps": w}`` for the
+    hop (``kernels/autotune.py`` measures them); it enters the plans'
+    cache key. Raises ``ValueError`` where the shared memory does not fit
+    (d above 14,000 or so for the gather's 4 query rows a CTA), where a
+    hop's slots or W * K edge ids do not, and where an override does not
+    fit or names another key: it is never replaced by the rule's plan."""
+    key = tuple(sorted(override.items())) if override else None
+    return _plan(B, M, layout, d, vec, hop, key)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B, M, layout, d, vec, hop, override) -> Plan:
+    o = dict(override or ())
+    unknown = set(o) - ({"warps"} if hop is not None else {"split"})
+    if unknown:
+        raise ValueError(f"{'hop' if hop else 'gather_dist'}: no plan "
+                         f"parameter {sorted(unknown)}")
     vpl = vpl_of(layout, d, vec)
     rows = rows_in_flight(layout, vpl)
     if hop is not None:
         W, K = hop
         warps = max(WARPS if B >= FILL else MAX_WARPS, _cdiv(M, 32))
+        warps = int(o.get("warps", warps))
         smem = hop_smem(d, W, K, M // max(W, 1))
-        if warps > MAX_WARPS or smem > SMEM_LIMIT:
+        if not _cdiv(M, 32) <= warps <= MAX_WARPS or smem > SMEM_LIMIT:
             raise ValueError(
                 f"hop: {M} candidate slots and {W} x {K} edge ids at d={d} "
-                f"need {warps} warps and {smem} B of shared memory (limits "
-                f"{MAX_WARPS}, {SMEM_LIMIT})")
+                f"on {warps} warps need {_cdiv(M, 32)} to {MAX_WARPS} "
+                f"warps and {smem} B of shared memory (limit {SMEM_LIMIT})")
         return Plan(vpl, rows, 1, M, warps, smem, B)
-    split = _cdiv(M, MAX_SLOTS)
-    if B * split < TASKS:  # at most TASKS tasks: one wave
-        split = max(split, min(TASKS // max(B, 1), _cdiv(M, max(rows, 4))))
+    if "split" in o:
+        split = int(o["split"])
+        if split < 1 or _cdiv(M, split) > MAX_SLOTS:
+            raise ValueError(
+                f"gather_dist: split={split} leaves {_cdiv(M, max(split, 1))}"
+                f" of M={M} slots a task (at least 1, at most {MAX_SLOTS})")
+    else:
+        split = _cdiv(M, MAX_SLOTS)
+        if B * split < TASKS:  # at most TASKS tasks: one wave
+            split = max(split,
+                        min(TASKS // max(B, 1), _cdiv(M, max(rows, 4))))
     slots = _cdiv(M, split)
     split = _cdiv(M, slots)
     smem = gather_smem(d, slots)
@@ -230,11 +256,11 @@ def _entry():
     return f
 
 
-def gather_dist_cuda(q, table, ids, *, metric="l2"):
+def gather_dist_cuda(q, table, ids, *, metric="l2", override=None):
     """q f32[B, d], table in any stored layout (see :func:`table_args`),
     ids int32[B, M] (-1 masked), all on one CUDA device -> f32[B, M].
-    Launches the kernel of the table's layout and width by :func:`plan`,
-    or raises."""
+    Launches the kernel of the table's layout and width by :func:`plan`
+    (``override``: its ``{"split": s}``), or raises."""
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
     dev = q.device
@@ -251,7 +277,7 @@ def gather_dist_cuda(q, table, ids, *, metric="l2"):
     out = torch.empty((B, M), dtype=torch.float32, device=dev)
     if B == 0 or M == 0:
         return out
-    p = plan(B, M, t.layout, d, rows_vec(t))
+    p = plan(B, M, t.layout, d, rows_vec(t), override=override)
     with _build.on_device(dev):
         rc = _entry()(q.data_ptr(), t.data.data_ptr(), t.aux_ptr,
                       ids.data_ptr(), out.data_ptr(), B, M, d, t.n, t.sub,

@@ -42,7 +42,7 @@ def _entry():
 
 
 def hop_cuda(q, table, nbrs, u, L, R, visited, exp_ok, *, logn, m_out,
-             skip_layers=True, metric="l2"):
+             skip_layers=True, metric="l2", override=None):
     """The fused hop on CUDA tensors: q f32[B, d], table in any stored
     layout (``gather_distance.table_args``), nbrs int32[n, layers, m],
     u int32[B, W], L/R int32[B*W] (or ints), visited int32[B,
@@ -50,7 +50,8 @@ def hop_cuda(q, table, nbrs, u, L, R, visited, exp_ok, *, logn, m_out,
 
     Returns ``(nbr int32[B, W*m_out], ndist f32[B, W*m_out],
     nvalid bool[B, W*m_out], visited)``; ``visited`` is updated IN PLACE
-    and returned. Launches the kernel of the table's layout or raises.
+    and returned. Launches the kernel of the table's layout or raises;
+    ``override`` (``{"warps": w}``) replaces the plan's warps a CTA.
     """
     if metric not in _METRICS:
         raise ValueError(f"unknown metric {metric!r}")
@@ -77,7 +78,7 @@ def hop_cuda(q, table, nbrs, u, L, R, visited, exp_ok, *, logn, m_out,
         return nbr, ndist, nvalid, visited
     layers, m = nbrs.shape[1], nbrs.shape[2]
     p = _gather.plan(B, WM, t.layout, d, _gather.rows_vec(t),
-                     hop=(W, layers * m))
+                     hop=(W, layers * m), override=override)
     with _build.on_device(dev):
         rc = _entry()(q.data_ptr(), t.data.data_ptr(), t.aux_ptr,
                       nbrs.data_ptr(), u.data_ptr(), L.data_ptr(),

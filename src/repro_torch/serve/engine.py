@@ -154,13 +154,14 @@ class ServingEngine:
     def __init__(
         self, index: RangeGraphIndex, *, config: SearchConfig | None = None,
         max_batch: int = 64, executor: SearchExecutor | None = None,
-        warmup: bool = False, faults=False,
+        warmup: bool | None = None, faults=False,
     ):
         """config: the engine's ``SearchConfig`` (defaults when None).
         executor: share a prebuilt ``SearchExecutor``
         (its config/max_batch win). warmup: fill the executor's grid now —
         forwarded to a newly built executor and, when True, also applied
-        to a prebuilt one. faults: a ``FaultConfig``/``FaultInjector`` to
+        to a prebuilt one; None means the ``RTORCH_SERVE_WARMUP`` knob
+        (unset: False). faults: a ``FaultConfig``/``FaultInjector`` to
         inject failures into flushes; the sync engine never picks faults
         up from the env (see ``serve/faults.py``)."""
         config = config or SearchConfig()

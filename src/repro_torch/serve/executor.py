@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import config as config_mod
+from repro_torch.core import knobs as knobs_mod
 from repro_torch.core import search as search_mod
 from repro_torch.core.config import SearchConfig
 from repro_torch.serve.errors import ShutdownError
@@ -89,14 +90,15 @@ class SearchExecutor:
         *,
         max_batch: int = 64,
         batch_buckets: tuple[int, ...] | None = None,
-        warmup: bool = False,
+        warmup: bool | None = None,
         faults=False,
     ):
         """index: a ``RangeGraphIndex`` (the port's). config: the default
         ``SearchConfig`` (per-call configs may differ; each is its own
         cache-key axis). batch_buckets: explicit padded batch shapes
         (ascending, ending at ``max_batch``); default the power-of-two
-        ladder. warmup: fill the whole grid now (:meth:`warmup`). faults:
+        ladder. warmup: fill the whole grid now (:meth:`warmup`); None
+        means the ``RTORCH_SERVE_WARMUP`` knob (unset: False). faults:
         an explicit ``FaultConfig``/``FaultInjector`` injecting latency
         spikes into ``search_ranks`` (``serve/faults.py``); never taken
         from the environment here."""
@@ -130,6 +132,8 @@ class SearchExecutor:
             "compiles": 0, "warmup_compiles": 0, "cache_hits": 0,
             "batches": 0, "queries": 0, "index_bytes": int(index.nbytes),
         }
+        if warmup is None:
+            warmup = knobs_mod.get_bool("RTORCH_SERVE_WARMUP")
         if warmup:
             self.warmup()
 

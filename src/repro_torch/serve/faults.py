@@ -29,19 +29,19 @@ latency,flush_error`` enables those kinds for every component that
 resolves its ``faults`` parameter through :func:`resolve` with the default
 ``None``; the synchronous ``ServingEngine`` and ``SearchExecutor`` only
 inject when handed an injector explicitly, so deterministic runs stay
-deterministic. Knobs (defaults as ``repro``'s): ``RTORCH_FAULT_LATENCY_S``
-(0.02), ``RTORCH_FAULT_LATENCY_RATE`` (0.25),
-``RTORCH_FAULT_FLUSH_ERROR_RATE`` (0.25), ``RTORCH_FAULT_QUEUE_FULL_RATE``
-(0.25), ``RTORCH_FAULT_SEED`` (0).
+deterministic. Knobs (defaults as ``repro``'s), all read through the typed
+registry ``core/knobs.py``: ``RTORCH_FAULT_LATENCY_S`` (0.02),
+``RTORCH_FAULT_LATENCY_RATE`` (0.25), ``RTORCH_FAULT_FLUSH_ERROR_RATE``
+(0.25), ``RTORCH_FAULT_QUEUE_FULL_RATE`` (0.25), ``RTORCH_FAULT_SEED`` (0).
 """
 from __future__ import annotations
 
 import dataclasses
-import os
 import random
 import threading
 import time
 
+from repro_torch.core import knobs as knobs_mod
 from repro_torch.serve.errors import InjectedFaultError
 
 __all__ = ["FAULT_KINDS", "FaultConfig", "FaultInjector", "resolve"]
@@ -77,28 +77,23 @@ class FaultConfig:
     @classmethod
     def from_env(cls, env=None) -> "FaultConfig | None":
         """``RTORCH_FAULTS`` comma list -> a config, or None when unset or
-        empty. ``env`` overrides the mapping read (default ``os.environ``);
-        an unset or empty knob takes the field's default."""
-        env = os.environ if env is None else env
-        kinds = tuple(t.strip() for t in env.get("RTORCH_FAULTS", "")
-                      .split(",") if t.strip())
+        empty. Every knob resolves through the typed registry
+        (``core/knobs.py``); ``env`` overrides the mapping read (default
+        ``os.environ``); an unset or empty knob takes its default."""
+        kinds = knobs_mod.get_list("RTORCH_FAULTS", env)
         if not kinds:
             return None
-        kw = {}
-        for field, name, conv in _ENV_KNOBS:
-            v = env.get(name, "").strip()
-            if v:
-                kw[field] = conv(v)
-        return cls(kinds=kinds, **kw)
-
-
-_ENV_KNOBS = (
-    ("latency_s", "RTORCH_FAULT_LATENCY_S", float),
-    ("latency_rate", "RTORCH_FAULT_LATENCY_RATE", float),
-    ("flush_error_rate", "RTORCH_FAULT_FLUSH_ERROR_RATE", float),
-    ("queue_full_rate", "RTORCH_FAULT_QUEUE_FULL_RATE", float),
-    ("seed", "RTORCH_FAULT_SEED", int),
-)
+        return cls(
+            kinds=kinds,
+            latency_s=knobs_mod.get_float("RTORCH_FAULT_LATENCY_S", env),
+            latency_rate=knobs_mod.get_float("RTORCH_FAULT_LATENCY_RATE",
+                                             env),
+            flush_error_rate=knobs_mod.get_float(
+                "RTORCH_FAULT_FLUSH_ERROR_RATE", env),
+            queue_full_rate=knobs_mod.get_float(
+                "RTORCH_FAULT_QUEUE_FULL_RATE", env),
+            seed=knobs_mod.get_int("RTORCH_FAULT_SEED", env),
+        )
 
 
 class FaultInjector:
