@@ -143,7 +143,13 @@ the full-size run, one card). It
   11. holds the flash-attention kernel against its plain version at the
      path's shape (bf16, f16 and f32), at S = 4,096 and over a variant grid
      (window, softcap, bidirectional, q_offset; q, k and v in the
-     projections' transposed layout; f32 within 1e-5, bf16 and f16 within
+     projections' transposed layout) and at the lm decode phase's prefill
+     shapes (gemma2-9b's local and global layers, B 4, S 4,608, Dh 256,
+     softcap 50; granite-20b's MQA, g = 48; seamless's cross-attention
+     over contiguous K/V; every other attention of leg B at its config's
+     heads and Dh, B 2, S 512: qwen3, phi3-mini's Dh 96, chameleon's
+     g = 8, the MoEs, zamba2's shared block, seamless's bidirectional
+     encoder and causal decoder) (f32 within 1e-5, bf16 and f16 within
      one bf16 ulp and the f32 tolerance, see ``bf16_tol``), and fails a
      shape whose launch went to another body than its dtype and head dim
      name (16-bit: the tensor-core body; f32: the CUDA-core one), with
@@ -172,11 +178,36 @@ the full-size run, one card). It
      against its default plan's outputs (a refused one fails); prints
      each kind's pick, its time and the default plan's
      (``hotpath[...]``), then the three new phases' seconds;
+  11d. frees what the earlier phases held and serves every model family
+     through ``train/step.py``'s prefill and greedy decode steps
+     (``lm_decode_phase``), each config's counts at 0 before its served
+     path. Leg A, ``lm decode[gemma2-9b]``: full width and depth (42
+     layers, d 3,584, params f32, compute bf16, seeded weights), 4
+     prompts of 4,608 tokens (the 4,096 window bites in the 21 local
+     layers), the caches grown to 4,640 positions, 32 greedy steps;
+     prints prefill s and tokens/s, decode ms a step and tokens/s, peak
+     device memory and the flash launches by body. Gates: 42 flash
+     launches on the path, all on the wgmma body (decode is plain torch);
+     prompt 0's last-position logits against an all-plain prefill, and
+     one teacher-forced decode step against the forward pass over its
+     4,609 tokens, least row cosine >= DEC_MIN_COSINE, finite; every
+     generated token in [0, vocab). Leg B, ``lm families[<arch>]``: the
+     nine other configs at full width, depth cut to one repeating unit
+     (``FAM_CUT``, printed as ``CUT:``), 2 prompts of 512 tokens (seamless:
+     512 seeded frames): prefill, 8 greedy steps and ``Model.embed``;
+     gates: kernel prefill vs all-plain, 8 teacher-forced steps vs the
+     forward pass (MoE at capacity factor 8.0 for this gate only), flash
+     launches as many as attention applications, all on the wgmma body,
+     embeddings finite [2, d]; prints parameters, prefill ms, decode ms a
+     step and flash launches (seamless: encoder, decoder self-attention
+     and cross-attention apart). The phase fails past DEC_MAX_S;
   12. prints one JSON line of kernel records (each codec layout as e.g.
      ``gather_dist[int8]``; flash_attention with its launches on the lm
-     serve path; gather_dist, gather_dist[int8], select_edges, the hop and
-     the prune with their autotune pick and default plan's time at each
-     probe) and, last, the device line.
+     serve path, on each config of the lm decode phase and its records at
+     every attention shape of that phase's prefills, each held against
+     the plain version in step 11; gather_dist, gather_dist[int8],
+     select_edges, the hop and the prune with their autotune pick and
+     default plan's time at each probe) and, last, the device line.
 
 It exits non-zero, printing no result, when there is no CUDA card, when
 the repo's sources are not beside it, when a dispatch or storage knob
@@ -186,6 +217,7 @@ environment, or when any phase fails.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import math
 import os
@@ -307,7 +339,33 @@ FLASH_SHAPES = {
                           {"causal": False}),
     "q_offset": (4, 16, 8, 100, 256, 128, "bfloat16", {"q_offset": 156}),
     "q_offset f32": (4, 16, 8, 100, 256, 128, "float32", {"q_offset": 156}),
+    # the lm decode phase's prefill shapes: gemma2-9b's local and global
+    # layers, granite-20b's MQA (g = 48), seamless's cross-attention over
+    # the contiguous K/V that models/attention.py::cross_kv makes
+    "gemma2 local": (4, 16, 8, 4608, 4608, 256, "bfloat16",
+                     {"window": 4096, "softcap": 50.0}),
+    "gemma2 global": (4, 16, 8, 4608, 4608, 256, "bfloat16",
+                      {"softcap": 50.0}),
+    "granite": (2, 48, 1, 512, 512, 128, "bfloat16", {}),
+    "seamless cross": (2, 16, 16, 512, 512, 64, "bfloat16",
+                       {"causal": False}),
+    # the rest of leg B's prefill shapes, each config's heads and Dh at
+    # B 2, S 512 (xlstm-125m has no attention)
+    "qwen3": (2, 16, 8, 512, 512, 128, "bfloat16", {}),
+    "phi3-mini": (2, 32, 32, 512, 512, 96, "bfloat16", {}),
+    "chameleon": (2, 64, 8, 512, 512, 128, "bfloat16", {}),
+    "granite-moe": (2, 16, 8, 512, 512, 64, "bfloat16", {}),
+    "phi3.5-moe": (2, 32, 8, 512, 512, 128, "bfloat16", {}),
+    "zamba2 shared": (2, 32, 32, 512, 512, 64, "bfloat16", {}),
+    "seamless encoder": (2, 16, 16, 512, 512, 64, "bfloat16",
+                         {"causal": False}),
+    "seamless decoder": (2, 16, 16, 512, 512, 64, "bfloat16", {}),
 }
+FLASH_PATH_SHAPES = ("gemma2 local", "gemma2 global", "granite",
+                     "seamless cross", "qwen3", "phi3-mini", "chameleon",
+                     "granite-moe", "phi3.5-moe", "zamba2 shared",
+                     "seamless encoder", "seamless decoder")
+FLASH_CONTIGUOUS_KV = ("seamless cross",)
 
 
 def fail(msg: str) -> None:
@@ -1071,6 +1129,8 @@ def flash_checks(torch) -> dict:
                         dtype=dtype).transpose(1, 2)
         v = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
                         dtype=dtype).transpose(1, 2)
+        if name in FLASH_CONTIGUOUS_KV:
+            k, v = k.contiguous(), v.contiguous()
         ops.reset_launch_counts()
         got = flash_attention_cuda(q, k, v, **kw)
         body = [b for b, c in flash_attention_cuda.body_launches.items()
@@ -1113,7 +1173,9 @@ def flash_checks(torch) -> dict:
                    body=body,
                    shape=f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={S} Dh={Dh} "
                          f"{dt}"
-                         + (f" {json.dumps(kw)}" if kw else " causal"))
+                         + (f" {json.dumps(kw)}" if kw else " causal")
+                         + (" contiguous k/v" if name in FLASH_CONTIGUOUS_KV
+                            else ""))
         out[name] = rec
         print(f"kernel flash_attention[{name}] [{rec['shape']}] ({body} "
               f"body): {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
@@ -2784,6 +2846,374 @@ def hotpath_phase(torch) -> tuple[dict, bool]:
     return records, bool(ok)
 
 
+# The lm decode phase: prefill and greedy decode with KV and state caches
+# (models/, train/step.py). Leg A serves gemma2-9b at full width and depth
+# (params f32, compute bf16, seeded weights): DEC_B prompts of DEC_PROMPT
+# tokens, so the 4,096 window bites in the local layers, then DEC_STEPS
+# greedy steps. Leg B runs every other config at full width, its depth
+# cut to one repeating unit (FAM_CUT), at FAM_B x FAM_PROMPT.
+DEC_ARCH = "gemma2-9b"
+DEC_B, DEC_PROMPT, DEC_STEPS = 4, 4608, 32
+FAM_B, FAM_PROMPT, FAM_STEPS = 2, 512, 8
+FAM_FRAMES = 512          # seamless: seeded random encoder frames
+FAM_CUT = {               # config -> the fields its one-unit cut replaces
+    "qwen3-0.6b": {"n_layers": 1},
+    "phi3-mini-3.8b": {"n_layers": 1},
+    "granite-20b": {"n_layers": 1},
+    "chameleon-34b": {"n_layers": 1},
+    "granite-moe-1b-a400m": {"n_layers": 1},
+    "phi3.5-moe-42b-a6.6b": {"n_layers": 1},
+    "xlstm-125m": {"n_layers": 4, "slstm_layers": (3,)},
+    "zamba2-1.2b": {"n_layers": 7},  # one group of 6 + shared attn + tail
+    "seamless-m4t-large-v2": {"n_layers": 1, "enc_layers": 1},
+}
+# kernel prefill vs all-plain prefill, decode vs the forward pass: least
+# row cosine of the logits (both bf16 paths, rounded after other ops)
+DEC_MIN_COSINE = 0.999
+# MoE capacity for the decode-vs-forward gate only: at B = 2 a decode
+# step's C is int(2k/e * 1.25) + 1 = 1 and drops tokens the forward keeps
+DEC_GATE_CAPACITY = 8.0
+DEC_MAX_S = 180.0         # what the phase may add to the smoke
+
+
+def row_cosine(torch, a, b) -> float:
+    """The least cosine between matching rows of two [R, V] logits."""
+    return float(torch.nn.functional.cosine_similarity(
+        a.double(), b.double(), dim=-1).min())
+
+
+@contextlib.contextmanager
+def cross_launch_count(torch):
+    """Counts, in the yielded one-element list, the flash launches made
+    inside ``models/attention.py::attention`` calls given ``kv`` (the
+    encoder-decoder's cross-attention), read off the kernel's own count
+    before and after each call."""
+    from repro_torch.kernels import ops
+    from repro_torch.models import attention as attn_mod
+
+    inner, n = attn_mod.attention, [0]
+
+    def attention(*args, kv=None, **kw):
+        before = ops.launch_counts()["flash_attention"]
+        out = inner(*args, kv=kv, **kw)
+        if kv is not None:
+            n[0] += ops.launch_counts()["flash_attention"] - before
+        return out
+
+    attn_mod.attention = attention
+    try:
+        yield n
+    finally:
+        attn_mod.attention = inner
+
+
+def attention_applications(cfg) -> int:
+    """Flash launches of one full-sequence pass of ``cfg``: its attention
+    layers (zamba2: one per group; the encoder-decoder: encoder layers,
+    and self plus cross attention per decoder layer)."""
+    if cfg.family == "encdec":
+        return cfg.enc_layers + 2 * cfg.n_layers
+    if cfg.layer_pattern == "xlstm":
+        return 0
+    if cfg.layer_pattern == "hybrid_shared_attn":
+        return cfg.n_layers // cfg.shared_attn_period
+    return cfg.n_layers
+
+
+def decode_leg_a(torch, dev, cfg) -> tuple[dict, bool]:
+    """gemma2-9b served: all-plain prefill of prompt 0 (gate 2's
+    reference), then with every count at 0 the kernel prefill of DEC_B
+    prompts, the caches grown to DEC_PROMPT + DEC_STEPS, one
+    teacher-forced step (gate 3) and DEC_STEPS greedy steps; then the
+    forward pass over prompt 0's DEC_PROMPT + 1 tokens."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.models import transformer
+    from repro_torch.models.api import Model, count_params
+    from repro_torch.sharding.partitioning import leaves
+    from repro_torch.train.step import build_decode_step, \
+        build_prefill_step, greedy
+
+    model = Model(cfg)
+    plain = Model(dataclasses.replace(cfg, attention_impl="torch"))
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    toks = torch.as_tensor(np.random.default_rng(23).integers(
+        0, cfg.vocab, (DEC_B, DEC_PROMPT + 1)), device=dev)
+    prefill = build_prefill_step(model)
+    decode = build_decode_step(model)
+
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    ref_logits, _ = build_prefill_step(plain)(
+        params, {"tokens": toks[:1, :DEC_PROMPT]})
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    plain_flash = ops.launch_counts()["flash_attention"]
+
+    # the served path, every count at 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    logits, caches = prefill(params, {"tokens": toks[:, :DEC_PROMPT]})
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    prefill_counts = ops.launch_counts()
+    bodies = {k: v for k, v in ops.body_counts().items()
+              if k.startswith("flash_attention")}
+    cache = model.grow_cache(caches, DEC_PROMPT + DEC_STEPS)
+    del caches
+    tf_logits, _ = model.decode(params, toks[:, DEC_PROMPT:], cache,
+                                DEC_PROMPT)
+    tok = greedy(cfg, logits)
+    out, step_ms = [tok], []
+    for t in range(DEC_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tok, cache = decode(params, tok, cache, DEC_PROMPT + t)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        out.append(tok)
+    counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    # one more step at the last position (its row is rewritten) under the
+    # profiler: where a step's device time goes
+    profile_search(torch, lambda: decode(params, tok, cache,
+                                         DEC_PROMPT + DEC_STEPS - 1),
+                   f"decode step of {cfg.name}, B={DEC_B}")
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for _, t in leaves(cache))
+    del cache
+    generated = torch.cat(out, dim=1)
+
+    # gate 3's reference: the forward pass over prompt 0's 4,609 tokens
+    hidden, _, _ = transformer.forward_seq(params, cfg,
+                                           toks[:1, :DEC_PROMPT + 1])
+    fwd = transformer.compute_logits(params, cfg, hidden[:, -1])
+    cos_plain = row_cosine(torch, logits[:1], ref_logits)
+    cos_decode = row_cosine(torch, tf_logits[:1, 0], fwd)
+    decode_s = sum(step_ms) / 1e3
+    rec = {
+        "B": DEC_B, "prompt": DEC_PROMPT, "steps": DEC_STEPS,
+        "params": count_params(cfg),
+        "init_s": round(init_s, 3),
+        "prefill_s": round(prefill_s, 4),
+        "prefill_tokens_per_s": round(DEC_B * DEC_PROMPT / prefill_s, 1),
+        "plain_prefill_s_B1": round(plain_s, 4),
+        "decode_ms_per_step": round(decode_s * 1e3 / DEC_STEPS, 3),
+        "decode_ms_first_step": round(step_ms[0], 3),
+        "decode_ms_median_step": round(float(np.median(step_ms)), 3),
+        "decode_tokens_per_s": round(DEC_B * DEC_STEPS / decode_s, 1),
+        # a step must read every f32 weight and the cache once
+        "decode_bound_ms": round(bound_ms(
+            4 * count_params(cfg) + cache_bytes, 0, PEAK_BF16_FLOPS)[0], 3),
+        "peak_device_memory_gib": round(peak / 2**30, 2),
+        "flash_launches_prefill": prefill_counts["flash_attention"],
+        "flash_launches": counts["flash_attention"],
+        "flash_bodies": bodies,
+        "plain_prefill_flash_launches": plain_flash,
+        "min_cosine_kernel_vs_plain_prefill": cos_plain,
+        "min_cosine_decode_vs_forward": cos_decode,
+        "logits_finite": bool(torch.isfinite(logits).all()
+                              and torch.isfinite(tf_logits).all()),
+        "tokens_in_range": bool(((generated >= 0)
+                                 & (generated < cfg.vocab)).all()),
+        "generated_prompt0": generated[0, :8].tolist(),
+    }
+    want = cfg.n_layers
+    ok = True
+    if counts["flash_attention"] != want or \
+            bodies["flash_attention[wgmma]"] != want or plain_flash:
+        print(f"lm decode[{cfg.name}]: flash launches {json.dumps(bodies)} "
+              f"on the path ({counts['flash_attention']} in all), plain "
+              f"prefill {plain_flash}; expected {want} (one per layer), "
+              "all on the wgmma body, and 0 on the plain prefill",
+              flush=True)
+        ok = False
+    if cos_plain < DEC_MIN_COSINE or cos_decode < DEC_MIN_COSINE or \
+            not rec["logits_finite"] or not rec["tokens_in_range"]:
+        print(f"lm decode[{cfg.name}]: cosine kernel vs plain prefill "
+              f"{cos_plain:.6f}, decode vs forward {cos_decode:.6f} (gate "
+              f"{DEC_MIN_COSINE}), finite {rec['logits_finite']}, tokens in "
+              f"[0, vocab) {rec['tokens_in_range']}", flush=True)
+        ok = False
+    return rec, ok
+
+
+def decode_leg_b(torch, dev, cfg) -> tuple[dict, bool]:
+    """One config at full width, depth cut: with every count at 0 the
+    kernel prefill of FAM_B prompts, FAM_STEPS greedy steps and
+    ``Model.embed``; then the all-plain prefill, and FAM_STEPS
+    teacher-forced steps against the forward pass's logits (MoE at
+    DEC_GATE_CAPACITY)."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import ops
+    from repro_torch.models import encdec, transformer
+    from repro_torch.models.api import Model, count_params
+    from repro_torch.train.step import build_decode_step, \
+        build_prefill_step, greedy
+
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+    rng = np.random.default_rng(29)
+    toks = torch.as_tensor(rng.integers(
+        0, cfg.vocab, (FAM_B, FAM_PROMPT + FAM_STEPS)), device=dev)
+    inputs = {"tokens": toks[:, :FAM_PROMPT]}
+    if model.is_encdec:
+        inputs["frames"] = torch.as_tensor(rng.standard_normal(
+            (FAM_B, FAM_FRAMES, cfg.d_model)), dtype=torch.float32,
+            device=dev)
+    decode = build_decode_step(model)
+    ops.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with cross_launch_count(torch) as cross:
+        logits, caches = build_prefill_step(model)(params, inputs)
+        torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    prefill_flash = ops.launch_counts()["flash_attention"]
+    cache = model.grow_cache(caches, FAM_PROMPT + FAM_STEPS)
+    del caches
+    tok = greedy(cfg, logits)
+    out = [tok]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for t in range(FAM_STEPS):
+        tok, cache = decode(params, tok, cache, FAM_PROMPT + t)
+        out.append(tok)
+    torch.cuda.synchronize()
+    decode_ms = (time.perf_counter() - t0) * 1e3 / FAM_STEPS
+    del cache
+    emb = None if model.is_encdec else model.embed(params,
+                                                   inputs["tokens"])
+    counts = ops.launch_counts()
+    bodies = {k: v for k, v in ops.body_counts().items()
+              if k.startswith("flash_attention")}
+    generated = torch.cat(out, dim=1)
+    enc_flash = None
+    if model.is_encdec:
+        ops.reset_launch_counts()
+        encdec.encode(params, cfg, inputs["frames"])
+        enc_flash = ops.launch_counts()["flash_attention"]
+
+    plain = Model(dataclasses.replace(cfg, attention_impl="torch"))
+    ref_logits, _ = plain.prefill(params, **inputs)
+    gate = Model(dataclasses.replace(cfg, moe_capacity_factor=(
+        DEC_GATE_CAPACITY if cfg.n_experts else cfg.moe_capacity_factor)))
+    _, caches = gate.prefill(params, **inputs)
+    cache = gate.grow_cache(caches, FAM_PROMPT + FAM_STEPS)
+    del caches
+    tf = [gate.decode(params, toks[:, FAM_PROMPT + t:FAM_PROMPT + t + 1],
+                      cache, FAM_PROMPT + t)[0][:, 0]
+          for t in range(FAM_STEPS)]
+    del cache
+    if model.is_encdec:
+        enc = encdec.encode(params, gate.cfg, inputs["frames"])
+        hidden, _ = encdec.decode_seq(params, gate.cfg, toks, enc)
+    else:
+        hidden, _, _ = transformer.forward_seq(params, gate.cfg, toks)
+    fwd = transformer.compute_logits(params, cfg, hidden[:, FAM_PROMPT:])
+    cos_plain = row_cosine(torch, logits, ref_logits)
+    cos_decode = row_cosine(torch, torch.stack(tf, 1).flatten(0, 1),
+                            fwd.flatten(0, 1))
+    want = attention_applications(cfg) * (1 if model.is_encdec else 2)
+    rec = {
+        "params_cut": count_params(cfg),
+        "params_full": count_params(get_arch(cfg.name)),
+        "prefill_ms": round(prefill_ms, 3),
+        "decode_ms_per_step": round(decode_ms, 3),
+        "flash_launches": counts["flash_attention"],
+        "flash_launches_prefill": prefill_flash,
+        "flash_bodies": bodies,
+        "min_cosine_kernel_vs_plain_prefill": cos_plain,
+        "min_cosine_decode_vs_forward": cos_decode,
+        "tokens_in_range": bool(((generated >= 0)
+                                 & (generated < cfg.vocab)).all()),
+    }
+    if enc_flash is not None:
+        rec["flash_launches_encoder"] = enc_flash
+        rec["flash_launches_cross"] = cross[0]
+        rec["flash_launches_decoder_self"] = prefill_flash - enc_flash \
+            - cross[0]
+    else:
+        rec["embed_finite"] = bool(torch.isfinite(emb).all())
+        rec["embed_shape"] = list(emb.shape)
+    ok = True
+    if counts["flash_attention"] != want or \
+            bodies["flash_attention[wgmma]"] != want:
+        print(f"lm families[{cfg.name}]: flash launches "
+              f"{json.dumps(bodies)}, expected {want}, all on the wgmma "
+              "body", flush=True)
+        ok = False
+    bad_embed = emb is not None and (not rec["embed_finite"] or
+                                     tuple(emb.shape) != (FAM_B, cfg.d_model))
+    if cos_plain < DEC_MIN_COSINE or cos_decode < DEC_MIN_COSINE or \
+            not rec["tokens_in_range"] or bad_embed or \
+            not bool(torch.isfinite(logits).all()):
+        print(f"lm families[{cfg.name}]: cosine kernel vs plain prefill "
+              f"{cos_plain:.6f}, decode vs forward {cos_decode:.6f} (gate "
+              f"{DEC_MIN_COSINE}), tokens in range {rec['tokens_in_range']}"
+              f", embeddings {rec.get('embed_shape')} finite "
+              f"{rec.get('embed_finite')}", flush=True)
+        ok = False
+    return rec, ok
+
+
+def lm_decode_phase(torch, dev) -> tuple[dict, bool]:
+    """Legs A and B of the lm decode phase, each config's counts at 0
+    before its served path. Frees the memory the other phases left
+    first."""
+    import dataclasses
+    import gc
+
+    from repro_torch.configs import get_arch
+
+    t_phase = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"lm decode: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          "held by the earlier phases", flush=True)
+    out, ok = {}, True
+    cfg = get_arch(DEC_ARCH)
+    rec, good = decode_leg_a(torch, dev, cfg)
+    print(f"lm decode[{cfg.name}, {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"params {cfg.param_dtype}, compute {cfg.compute_dtype}, "
+          f"B={DEC_B}, prompt={DEC_PROMPT}, {DEC_STEPS} greedy steps]: "
+          f"{json.dumps(rec)}" + ("" if good else "  FAILED"), flush=True)
+    out[cfg.name] = rec
+    ok &= good
+    gc.collect()
+    torch.cuda.empty_cache()
+    for name, cut in FAM_CUT.items():
+        cfg = dataclasses.replace(get_arch(name), **cut)
+        print(f"CUT: lm families[{name}] depth {json.dumps(cut)} (full: "
+              f"{get_arch(name).n_layers} layers"
+              + (f", {get_arch(name).enc_layers} encoder layers"
+                 if cfg.family == "encdec" else "") + ")", flush=True)
+        rec, good = decode_leg_b(torch, dev, cfg)
+        print(f"lm families[{name}, d={cfg.d_model}, B={FAM_B}, "
+              f"prompt={FAM_PROMPT}, {FAM_STEPS} steps]: {json.dumps(rec)}"
+              + ("" if good else "  FAILED"), flush=True)
+        out[name] = rec
+        ok &= good
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase[lm decode]: {phase_s:.1f} s (budget {DEC_MAX_S:.0f} s)",
+          flush=True)
+    if phase_s > DEC_MAX_S:
+        print(f"phase[lm decode]: over its {DEC_MAX_S:.0f} s", flush=True)
+        ok = False
+    return out, ok
+
+
 def run(args):
     import torch
 
@@ -3355,6 +3785,21 @@ def run(args):
                 for r in tuned[kind]}
     print(f"phase[knobs + oracles + hotpath]: {new_phases_s:.1f} s "
           f"(budget {NEW_PHASES_MAX_S:.0f} s)", flush=True)
+
+    # -- prefill and decode of every family: gemma2-9b served at full width,
+    # the others at full width and one repeating unit of depth -------------
+    del index
+    decoded, good = lm_decode_phase(torch, dev)
+    ok &= good
+    flash_entry = next(e for e in kernels if e["name"] == "flash_attention")
+    flash_entry["lm_decode_launches"] = {
+        name: {k: rec[k] for k in ("flash_launches", "flash_bodies")}
+        for name, rec in decoded.items()}
+    for name in FLASH_PATH_SHAPES:
+        flash_entry[f"at_{name.replace(' ', '_')}"] = {
+            k: flash[name][k] for k in ("shape", "ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms",
+                                        "max_abs_err", "body")}
     if not ok:
         fail("a check failed (see above)")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -3,10 +3,9 @@
 
 Every assigned architecture is a frozen ``ArchConfig``; reduced smoke
 variants are derived with ``cfg.reduced()``. The schema is ``repro``'s,
-field for field, so the ten configs copy as data; the port runs the dense
-family with the ``"global"`` layer pattern (``models/api.py::Model``
-raises ``NotImplementedError`` for the rest) and reads no training or
-compile field (``remat``, ``scan_layers``, ``scan_unroll``). Its
+field for field, so the ten configs copy as data; the port runs every
+family (``models/api.py::Model``) and reads no training or compile field
+(``remat``, ``scan_layers``, ``scan_unroll``). Its
 ``attention_impl`` tokens are ``"auto" | "cuda" | "torch"``
 (``kernels/ops.py``): ``"auto"`` launches the flash-attention kernel on a
 CUDA tensor and runs the plain version on a CPU tensor.

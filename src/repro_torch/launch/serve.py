@@ -7,7 +7,9 @@ serve batched RFANN queries (port of ``repro/launch/serve.py``).
 The end-to-end path of the framework: backbone -> embeddings -> iRangeGraph
 build -> batched range-filtered serving with a recall probe. Like
 ``repro``'s launcher it embeds with the architecture's ``.reduced()``
-variant and seeded random weights; unlike it, attention stays at
+variant and seeded random weights, and ``--arch`` takes every decoder-only
+family (dense, MoE, gemma2's local/global, zamba2, xLSTM; the
+encoder-decoder has no embedding); unlike it, attention stays at
 ``attention_impl="auto"`` (``repro`` pins its plain version because Pallas
 only interprets off a TPU), so on the card every layer runs the
 flash-attention kernel.
@@ -20,7 +22,7 @@ import time
 import numpy as np
 import torch
 
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCHS, get_arch
 from repro_torch.core import BuildConfig, RangeGraphIndex, SearchConfig, recall
 from repro_torch.device import resolve_device
 from repro_torch.models.api import Model
@@ -44,7 +46,8 @@ def embed_corpus(model, params, n, seq, vocab, seed=0, batch=64):
 
 def main(argv=None):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arch", default="qwen3-0.6b")
+    ap.add_argument("--arch", default="qwen3-0.6b", choices=sorted(
+        name for name, cfg in ARCHS.items() if cfg.family != "encdec"))
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--queries", type=int, default=256)
     ap.add_argument("--seq", type=int, default=32)

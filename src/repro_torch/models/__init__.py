@@ -1,8 +1,8 @@
-"""The language-model backbone of the port: the dense decoder stack that
-turns token ids into embeddings for the index (``models/api.py::Model``).
+"""The language-model stack of the port (port of ``repro/models``): every
+family's prefill and decode with KV and state caches, and the embeddings
+the index is built over (``models/api.py::Model``).
 
-Port of ``repro/models`` for ``family="dense"`` with ``layer_pattern=
-"global"``: full-sequence (prefill) forward only. Decode and its KV cache,
-logits and losses, MoE, SSM, xLSTM, hybrid and encoder-decoder stacks are
-not ported yet (ROADMAP queue 1, item 13).
+Dense and MoE decoders, gemma2's local/global pattern, Mamba2 and
+zamba2's shared-attention hybrid, xLSTM, and the encoder-decoder. The
+losses wait with training (ROADMAP queue 1, item 13b).
 """

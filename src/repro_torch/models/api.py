@@ -1,46 +1,56 @@
-"""The model entry point of the port (port of ``repro/models/api.py::
-Model`` for the embed path).
+"""The model entry point of the port: one ``Model`` per config, whatever
+the family (port of ``repro/models/api.py``).
 
-    model = Model(get_arch("qwen3-0.6b"))
+    model = Model(get_arch("gemma2-9b"))
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    logits, caches = model.prefill(params, tokens=tokens)  # + frames= (encdec)
+    cache = model.grow_cache(caches, max_len)
+    logits, cache = model.decode(params, token, cache, pos)
     emb = model.embed(params, tokens)   # f32 [B, d_model]: the index's vectors
 
-The port runs ``family="dense"`` with ``layer_pattern="global"``; any other
-family or pattern raises ``NotImplementedError`` at construction. Weights
-from ``repro`` carry across with :func:`params_from_numpy`, so both
-packages compute the same function.
+Every config of ``configs/`` runs: dense and MoE stacks, gemma2's
+local/global pairs, zamba2's mamba groups with a shared attention block,
+xLSTM and the encoder-decoder. Weights from ``repro`` carry across with
+:func:`params_from_numpy`, so both packages compute the same function.
+Decode updates the cache in place. Training (the loss) waits, ROADMAP
+queue 1 item 13b.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.device import resolve_device
-from repro_torch.models import transformer
+from repro_torch.models import encdec, transformer
 from repro_torch.sharding import partitioning as part
 
-__all__ = ["Model", "params_from_numpy"]
+__all__ = ["Model", "count_params", "params_from_numpy"]
 
-_TODO = "ROADMAP queue 1, item 13 (the rest of the LM stack)"
+
+def _tokens(tokens, dev) -> torch.Tensor:
+    """Token ids (numpy or a tensor) as a long tensor on ``dev``."""
+    if not isinstance(tokens, torch.Tensor):
+        tokens = torch.as_tensor(np.asarray(tokens))
+    return tokens.to(dev, torch.long)
 
 
 @dataclasses.dataclass(frozen=True)
 class Model:
     cfg: ArchConfig
 
-    def __post_init__(self):
-        cfg = self.cfg
-        if cfg.family != "dense" or cfg.layer_pattern != "global":
-            raise NotImplementedError(
-                f"{cfg.name}: family {cfg.family!r} with layer pattern "
-                f"{cfg.layer_pattern!r} is not ported; the port runs dense "
-                f"models with global attention only ({_TODO})")
+    @property
+    def is_encdec(self) -> bool:
+        return self.cfg.family == "encdec"
+
+    def _mod(self):
+        return encdec if self.is_encdec else transformer
 
     def defs(self):
-        return transformer.defs(self.cfg)
+        return self._mod().defs(self.cfg)
 
     def init(self, generator: torch.Generator, *, device=None) -> dict:
         """Random parameters (``sharding/partitioning.py::init_params``) in
@@ -53,23 +63,106 @@ class Model:
         return part.init_params(self.defs(), generator,
                                 getattr(torch, self.cfg.param_dtype))
 
-    def embed(self, params: dict, tokens) -> torch.Tensor:
+    def prefill(self, params, **inputs):
+        """tokens [B, S] (and frames [B, S_enc, d] for the encoder-decoder)
+        -> (last-position logits [B, padded_vocab], the prefill caches)."""
+        dev = params["embed"]["table"].device
+        tokens = _tokens(inputs["tokens"], dev)
+        if self.is_encdec:
+            frames = torch.as_tensor(inputs["frames"]).to(dev)
+            return encdec.prefill(params, self.cfg, frames, tokens)
+        return transformer.prefill(params, self.cfg, tokens)
+
+    def decode(self, params, token, cache, pos):
+        """token [B, 1] at position ``pos`` -> (logits [B, 1, V], cache),
+        the cache updated in place."""
+        token = _tokens(token, params["embed"]["table"].device)
+        return self._mod().decode_step(params, self.cfg, token, cache, pos)
+
+    def init_cache(self, batch, max_len, *, enc_len=None, device=None):
+        """A zero decode cache of ``max_len`` positions on ``device`` (the
+        card unless ``device="cpu"``); ``enc_len``: the encoder-decoder's
+        cross-cache length (default ``max_len``, as ``repro``'s)."""
+        dev = resolve_device(device)
+        if self.is_encdec:
+            return encdec.init_cache(self.cfg, batch, max_len, enc_len,
+                                     device=dev)
+        return transformer.init_cache(self.cfg, batch, max_len, device=dev)
+
+    def grow_cache(self, caches, max_len):
+        """The decode cache of ``max_len`` positions that continues a
+        prefill: ``prefill``'s caches copied into a zero cache (K/V rows
+        at the front of the position dim, states as they are; the
+        encoder-decoder's cross cache kept at the encoder's length)."""
+        if self.is_encdec:
+            self_c, cross = caches
+            lead = self_c["k"]
+            out = encdec.init_cache(self.cfg, lead.shape[1], max_len,
+                                    cross["k"].shape[3], device=lead.device)
+            _copy_into(out["self"], self_c)
+            out["cross"] = cross
+            return out
+        # a leaf stacked on one leading dim: [units, B, ...]
+        lead = caches["attn"]["k"] if self.cfg.layer_pattern == \
+            "hybrid_shared_attn" else next(part.leaves(caches))[1]
+        out = transformer.init_cache(self.cfg, lead.shape[1], max_len,
+                                     device=lead.device)
+        _copy_into(out, caches)
+        return out
+
+    def embed(self, params, tokens) -> torch.Tensor:
         """Mean over positions of the f32 final hidden states: tokens int
         [B, S] (numpy or a tensor; moved to the parameters' device) ->
-        f32 [B, d_model], the RFANN vectors."""
-        dev = params["embed"]["table"].device
-        tokens = torch.as_tensor(np.asarray(tokens) if not isinstance(
-            tokens, torch.Tensor) else tokens).to(dev, torch.long)
-        hidden = transformer.forward_seq(params, self.cfg, tokens)
+        f32 [B, d_model], the RFANN vectors. Decoder-only families only:
+        ``repro``'s embed reads the decoder-only tree, so it has none for
+        the encoder-decoder, and neither has the port."""
+        if self.is_encdec:
+            raise ValueError(f"{self.cfg.name}: embed is defined for "
+                             "decoder-only families, not the "
+                             "encoder-decoder")
+        tokens = _tokens(tokens, params["embed"]["table"].device)
+        hidden, _, _ = transformer.forward_seq(params, self.cfg, tokens)
         return hidden.float().mean(dim=1)
+
+
+def _copy_into(dst, src) -> None:
+    """Copy a prefill cache tree into a decode cache tree of the same
+    paths: equal shapes whole, K/V into the first positions (dim -2)."""
+    if src is None:
+        return
+    if isinstance(src, dict):
+        for key, val in src.items():
+            _copy_into(dst[key], val)
+        return
+    if dst.shape == src.shape:
+        dst.copy_(src)
+    else:
+        dst[..., :src.shape[-2], :].copy_(src)
+
+
+def count_params(cfg: ArchConfig, active_only: bool = False) -> int:
+    """Parameter count from the ParamDef tree (no allocation).
+    ``active_only``: MoE expert leaves counted at ``top_k / n_experts``;
+    the padded vocab rows are not counted."""
+    total = 0
+    for _, d in part.leaves(Model(cfg).defs()):
+        n = math.prod(d.shape)
+        if active_only and "expert" in d.axes and cfg.n_experts:
+            n = int(n * cfg.expert_top_k / cfg.n_experts)
+        if "vocab" in d.axes and cfg.padded_vocab != cfg.vocab:
+            n = int(n * cfg.vocab / cfg.padded_vocab)
+        total += n
+    return total
 
 
 def params_from_numpy(model: Model, tree, *, device=None) -> dict:
     """The port's parameters from ``repro``'s tree for the same config,
     given as nested dicts of numpy arrays (``jax.tree.map(np.asarray,
-    params)``), placed on ``device`` (the card unless ``device="cpu"``)
-    in ``cfg.param_dtype``. Raises ``ValueError`` when a path is missing
-    or extra or a shape differs."""
+    params)``) -- every family's tree: stacked blocks, the nested stacks
+    ``a``/``b`` and ``m0``/``m1``/``m2``/``s``, ``shared_attn``,
+    ``enc_blocks``/``dec_blocks`` -- placed on ``device`` (the card unless
+    ``device="cpu"``) in ``cfg.param_dtype``. Raises ``ValueError`` when a
+    path is missing or extra or a shape differs."""
     dev = resolve_device(device)
     dtype = getattr(torch, model.cfg.param_dtype)
     want = dict(part.leaves(model.defs()))
@@ -91,4 +184,3 @@ def params_from_numpy(model: Model, tree, *, device=None) -> dict:
         node[path[-1]] = torch.as_tensor(
             np.array(a, dtype=np.float32)).to(dev, dtype)
     return out
-

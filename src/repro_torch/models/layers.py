@@ -1,6 +1,6 @@
-"""Shared model layers: RMS norm, RoPE, embedding lookup, softcap (port of
-``repro/models/layers.py``; logits and the cross-entropy wait with
-training, ROADMAP queue 1 item 13)."""
+"""Shared model layers: RMS norm, RoPE, embedding lookup, softcap and the
+output projection (port of ``repro/models/layers.py``; the cross-entropy
+losses wait with training, ROADMAP queue 1 item 13b)."""
 from __future__ import annotations
 
 import torch
@@ -8,7 +8,7 @@ import torch
 from repro_torch.sharding.partitioning import ParamDef
 
 __all__ = ["rms_norm", "rms_norm_def", "rope", "embed_def", "embed_lookup",
-           "softcap"]
+           "logits", "softcap"]
 
 
 def rms_norm_def(d):
@@ -55,3 +55,12 @@ def softcap(x, cap):
     if cap is None:
         return x
     return cap * torch.tanh(x / cap)
+
+
+def logits(embed_p, head_p, x, cfg):
+    """x [..., d] -> [..., padded_vocab] in x's dtype: the tied embedding
+    table (``cfg.tie_embeddings``) or ``head/w``, then
+    ``cfg.logit_softcap``."""
+    w = embed_p["table"] if cfg.tie_embeddings else head_p["w"]
+    out = torch.einsum("...d,vd->...v", x, w.to(x.dtype))
+    return softcap(out, cfg.logit_softcap)

@@ -77,6 +77,8 @@ def test_import_with_reference_and_codec_packages_blocked():
         "import repro_torch.data, repro_torch.compressio\n"
         "from repro_torch import configs, serve\n"
         "from repro_torch.models import api, attention, transformer\n"
+        "from repro_torch.models import encdec, mamba2, mlp, xlstm\n"
+        "from repro_torch.train import step\n"
         "from repro_torch.launch import serve as launch_serve\n"
         "from repro_torch.sharding import partitioning\n"
         "import repro_torch.bench.roofline, repro_torch.bench.buildpath\n"

@@ -95,14 +95,6 @@ def test_configs_are_repro_data():
             JARCHS[name].reduced())
 
 
-@pytest.mark.parametrize("name", sorted(
-    n for n, c in ARCHS.items()
-    if c.family != "dense" or c.layer_pattern != "global"))
-def test_unported_families_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Model(get_arch(name))
-
-
 def test_carry_rejects_a_mismatched_tree():
     jm, jp, tm, _ = _pair("float32")
     tree = jax.tree.map(np.asarray, jp)
