@@ -201,11 +201,39 @@ the full-size run, one card). It
      embeddings finite [2, d]; prints parameters, prefill ms, decode ms a
      step and flash launches (seamless: encoder, decoder self-attention
      and cross-attention apart). The phase fails past DEC_MAX_S;
+  11e. trains (``train_phase``), counts at 0 before each leg. Leg A,
+     ``lm train[qwen3-0.6b]``: full width and depth (28 layers, params
+     f32, compute bf16, remat "full", attention plain torch under
+     autograd, seeded weights), ``TokenPipeline(seed=0)`` at B 16 x S
+     1,024, ``AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=12)``, 12
+     steps of ``runtime/trainer.py::run_train_loop`` on one batch with a
+     checkpoint every 4 steps (level 0: stored zlib blocks, one pass);
+     prints s a step (median of steps 2-12), tokens/s, the model-FLOP
+     share (6·N·tokens over 989 TFLOP/s), peak memory, each step's loss
+     and grad norm, the checkpoint and restore seconds, and one
+     loss-and-gradient call under the profiler. Gates: losses finite, the
+     12th below 0.9 x the first; no restart (a failing step raises);
+     every gradient leaf of the first step finite and not None, grad
+     norms > 0, and its flattened cosine to the same gradient at f32
+     compute >= 0.99; the checkpoint of step 8 restored into fresh
+     tensors bit-identical to the state saved, and steps 9-12 replayed
+     from it within 1e-3 relative; a step at microbatches 2 within 1e-3
+     relative of the loss at 1 on the same state; a compressed step
+     finite; training launched no flash kernel; the trained weights embed
+     256 items of 32 tokens with 28 flash launches, all wgmma, least row
+     cosine to all-plain >= 0.9999; ``flash_attention_cuda`` refuses an
+     input that requires grad under grad mode. Leg B, ``lm train
+     families[<arch>]``: the nine other configs and gemma2-9b at full
+     width and one repeating unit of depth (``TRAIN_FAM_CUT``), B 2 x S
+     512 (seamless: 512 seeded frames), two steps each; gates: every
+     gradient leaf finite and not None, losses finite, MoE aux > 0; prints
+     ms a step and peak memory. The phase fails past TRAIN_MAX_S;
   12. prints one JSON line of kernel records (each codec layout as e.g.
      ``gather_dist[int8]``; flash_attention with its launches on the lm
      serve path, on each config of the lm decode phase and its records at
      every attention shape of that phase's prefills, each held against
-     the plain version in step 11; gather_dist, gather_dist[int8],
+     the plain version in step 11, and its launches in training (0) and
+     in the trained weights' embed; gather_dist, gather_dist[int8],
      select_edges, the hop and the prune with their autotune pick and
      default plan's time at each probe) and, last, the device line.
 
@@ -3214,6 +3242,370 @@ def lm_decode_phase(torch, dev) -> tuple[dict, bool]:
     return out, ok
 
 
+# -- the train phase: the training half of the LM stack --------------------
+# Leg A trains qwen3-0.6b at full width and depth (28 layers, params f32,
+# compute bf16, remat "full", attention plain torch with autograd, as
+# repro trains with "xla": the flash kernel has no backward) through
+# runtime/trainer.py, then serves the trained weights through the flash
+# kernel. Leg B takes two steps of every other config, and of gemma2-9b,
+# at full width and one repeating unit of depth (FAM_CUT).
+TRAIN_ARCH = "qwen3-0.6b"
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 16, 1024, 12
+TRAIN_CKPT_EVERY, TRAIN_REPLAY_FROM = 4, 8
+TRAIN_CKPT_LEVEL = 0      # zlib stored blocks in one pass: random f32
+                          # weights hardly compress
+TRAIN_MIN_GRAD_COSINE = 0.99  # first step's gradient, bf16 vs f32 compute
+TRAIN_REPLAY_RTOL = 1e-3  # replayed losses: GPU atomics reorder sums
+TRAIN_MB_RTOL = 1e-3      # loss at microbatches 2 vs 1, same state
+TRAIN_EMBED_N, TRAIN_EMBED_SEQ = 256, 32
+TRAIN_FAM_B, TRAIN_FAM_S, TRAIN_FAM_STEPS = 2, 512, 2
+TRAIN_FAM_CUT = {**FAM_CUT, DEC_ARCH: {"n_layers": 2}}  # + one local/global
+TRAIN_MAX_S = 150.0       # what the phase may add to the smoke
+
+
+def _leaves_of(tree):
+    from repro_torch.sharding.partitioning import leaves
+    return list(leaves(tree))
+
+
+def grad_report(torch, grads) -> dict:
+    """Leaves whose gradient is None or has a non-finite value."""
+    missing = ["/".join(p) for p, g in _leaves_of(grads) if g is None]
+    bad = ["/".join(p) for p, g in _leaves_of(grads)
+           if g is not None and not bool(torch.isfinite(g).all())]
+    return {"leaves": len(_leaves_of(grads)), "none": missing,
+            "non_finite": bad}
+
+
+def flat_cosine(torch, a, b) -> float:
+    """Cosine of two gradient trees flattened into one vector each (f64
+    sums leaf by leaf)."""
+    dot = na = nb = 0.0
+    for (_, x), (_, y) in zip(_leaves_of(a), _leaves_of(b)):
+        x, y = x.double(), y.double()
+        dot += float((x * y).sum())
+        na += float((x * x).sum())
+        nb += float((y * y).sum())
+    return dot / math.sqrt(na * nb)
+
+
+def train_leg_a(torch, dev) -> tuple[dict, bool]:
+    """qwen3-0.6b trained at full width and depth: the first step's
+    gradient gates, then with every count at 0 TRAIN_STEPS steps of
+    ``run_train_loop`` on one batch with a checkpoint every
+    TRAIN_CKPT_EVERY steps; the checkpoint of step TRAIN_REPLAY_FROM
+    restored and replayed; one step at microbatches 2 and one with int8
+    compression; then the trained weights embed through the flash
+    kernel, counts at 0 again."""
+    import dataclasses
+    import tempfile
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+    from repro_torch.models.api import Model, count_params
+    from repro_torch.runtime.trainer import TrainLoopConfig, run_train_loop
+    from repro_torch.train import compression
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import build_train_step, loss_and_grads
+
+    served = get_arch(TRAIN_ARCH)
+    cfg = dataclasses.replace(served, attention_impl="torch")
+    if (cfg.remat, cfg.param_dtype, cfg.compute_dtype) != (
+            "full", "float32", "bfloat16"):
+        fail(f"lm train: {cfg.name} is not remat full, f32 params, bf16 "
+             "compute")
+    model = Model(cfg)
+    t0 = time.perf_counter()
+    params = model.init(torch.Generator(device=dev).manual_seed(0),
+                        device=dev)
+    batch = TokenPipeline(cfg.vocab, batch=TRAIN_B, seq=TRAIN_S,
+                          seed=0).next_batch(device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    opt_cfg = AdamWConfig(lr=3e-3, warmup_steps=2, total_steps=TRAIN_STEPS)
+    n_params = count_params(cfg)
+
+    # the first step's gradient: every leaf, and bf16 against f32 compute
+    t0 = time.perf_counter()
+    _, _, grads = loss_and_grads(model, params, batch)
+    report = grad_report(torch, grads)
+    f32 = Model(dataclasses.replace(cfg, compute_dtype="float32"))
+    _, _, grads32 = loss_and_grads(f32, params, batch)
+    cosine = flat_cosine(torch, grads, grads32)
+    del grads, grads32
+    torch.cuda.synchronize()
+    grad_gate_s = time.perf_counter() - t0
+
+    # the main path, every count at 0: the fault-tolerant loop
+    step = build_train_step(model, opt_cfg)
+    snap, step_s, gnorms, logs = {}, [], [], []
+
+    def step_fn(state, b):
+        t0 = time.perf_counter()
+        p, o, m = step(*state, b)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        gnorms.append(float(m["grad_norm"]))
+        if int(o.step) == TRAIN_REPLAY_FROM:   # what its checkpoint holds
+            snap["leaves"] = [t.detach().clone()
+                              for t in ckpt.tree_flatten((p, o))]
+        return (p, o), m
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ckpt_")
+    loop_cfg = TrainLoopConfig(
+        total_steps=TRAIN_STEPS, ckpt_dir=tmp.name,
+        ckpt_every=TRAIN_CKPT_EVERY, keep=2, max_restarts=0, log_every=1)
+    gc_collect(torch)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    t0 = time.perf_counter()
+    with knob_env({"RTORCH_COMPRESS_LEVEL": str(TRAIN_CKPT_LEVEL)}):
+        (params, opt), hist = run_train_loop(
+            step_fn, (params, init_opt_state(params)), lambda s: batch,
+            loop_cfg, log=logs.append)
+    loop_s = time.perf_counter() - t0
+    train_counts = ops.launch_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    ckpt_bytes = os.path.getsize(os.path.join(
+        tmp.name, f"step_{TRAIN_STEPS}.ckpt"))
+
+    # the checkpoint of step 8 into fresh tensors, then steps 9-12 again
+    t0 = time.perf_counter()
+    (rp, ro), at, _ = ckpt.restore(tmp.name, (params, opt),
+                                   step=TRAIN_REPLAY_FROM)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    restored = ckpt.tree_flatten((rp, ro))
+    bit_identical = at == TRAIN_REPLAY_FROM and len(restored) == len(
+        snap["leaves"]) and all(
+        a.dtype == b.dtype and torch.equal(a.detach(), b)
+        for a, b in zip(restored, snap["leaves"]))
+    fresh = all(a.data_ptr() != b.data_ptr() for a, b in zip(
+        restored, ckpt.tree_flatten((params, opt))))
+    del snap, restored, params, opt
+    tmp.cleanup()
+    replay = []
+    for _ in range(TRAIN_STEPS - TRAIN_REPLAY_FROM):
+        rp, ro, m = step(rp, ro, batch)
+        replay.append(float(m["loss"]))
+    replay_err = max(abs(a - b) / abs(b) for a, b in
+                     zip(replay, hist["loss"][TRAIN_REPLAY_FROM:]))
+
+    # one step at microbatches 2 against the loss at 1 on the same state
+    with torch.no_grad():
+        loss_mb1 = float(model.loss(rp, batch)[0])
+    rp, ro, m = build_train_step(model, opt_cfg, microbatches=2)(
+        rp, ro, batch)
+    loss_mb2 = float(m["loss"])
+    err = compression.init_error_state(rp)
+    rp, ro, m, err = build_train_step(model, opt_cfg, compress=True)(
+        rp, ro, batch, err)
+    compressed = {k: float(v) for k, v in m.items()}
+    del err
+    # where a training step's device time goes (no update: loss + grads)
+    gc_collect(torch)
+    profile_search(torch, lambda: loss_and_grads(model, rp, batch),
+                   f"train loss+grads of {cfg.name}, B={TRAIN_B}, "
+                   f"S={TRAIN_S}", share_of=("gemm", "elementwise",
+                                             "reduce", "softmax"))
+
+    # the trained weights serve: embed through the flash kernel
+    toks = np.random.default_rng(31).integers(
+        0, cfg.vocab, (TRAIN_EMBED_N, TRAIN_EMBED_SEQ))
+    ops.reset_launch_counts()
+    emb = Model(served).embed(rp, toks)
+    torch.cuda.synchronize()
+    embed_counts = ops.launch_counts()
+    bodies = {k: v for k, v in ops.body_counts().items()
+              if k.startswith("flash_attention")}
+    emb_plain = model.embed(rp, toks)
+    emb_cos = row_cosine(torch, emb, emb_plain)
+
+    # the kernel refuses a graph it cannot differentiate
+    q = rp["embed"]["table"][:64].to(torch.bfloat16).reshape(1, 1, 64, -1)
+    try:
+        flash_attention_cuda(q[..., :128], q[..., :128], q[..., :128])
+        guard = False
+    except RuntimeError as e:
+        guard = "no backward" in str(e)
+
+    med = float(np.median(step_s[1:]))
+    tokens = TRAIN_B * TRAIN_S
+    rec = {
+        "B": TRAIN_B, "S": TRAIN_S, "steps": TRAIN_STEPS,
+        "params": n_params, "init_s": round(init_s, 3),
+        "s_per_step_median_2_12": round(med, 4),
+        "s_first_step": round(step_s[0], 4),
+        "tokens_per_s": round(tokens / med, 1),
+        "model_flop_share": round(6 * n_params * tokens / med
+                                  / PEAK_BF16_FLOPS, 4),
+        "peak_device_memory_gib": round(peak / 2**30, 2),
+        "loss": [round(x, 5) for x in hist["loss"]],
+        "grad_norm": [round(x, 5) for x in gnorms],
+        "restarts": hist["restarts"],
+        "straggler_events": hist["straggler_events"],
+        "loop_s": round(loop_s, 2),
+        "checkpoint_s_3_saves": round(loop_s - sum(step_s), 2),
+        "checkpoint_bytes": ckpt_bytes,
+        "restore_s": round(restore_s, 2),
+        "restored_bit_identical": bit_identical,
+        "restored_into_fresh_tensors": fresh,
+        "replayed_loss_9_12": [round(x, 5) for x in replay],
+        "replay_max_rel_err": replay_err,
+        "grad_leaves": report["leaves"],
+        "grad_none": report["none"], "grad_non_finite": report["non_finite"],
+        "grad_cosine_bf16_vs_f32": cosine,
+        "grad_gate_s": round(grad_gate_s, 2),
+        "loss_microbatches_1": loss_mb1, "loss_microbatches_2": loss_mb2,
+        "compressed_step": compressed,
+        "flash_launches_training": train_counts["flash_attention"],
+        "embed_flash_launches": embed_counts["flash_attention"],
+        "embed_flash_bodies": bodies,
+        "embed_min_cosine_vs_plain": emb_cos,
+        "flash_refuses_autograd": guard,
+    }
+    checks = {
+        "losses finite": all(math.isfinite(x) for x in hist["loss"]),
+        f"loss at step {TRAIN_STEPS} < 0.9 x step 1":
+            hist["loss"][-1] < 0.9 * hist["loss"][0],
+        "no restart": hist["restarts"] == 0
+            and len(hist["loss"]) == TRAIN_STEPS,
+        "every gradient leaf finite, none None":
+            not report["none"] and not report["non_finite"],
+        "grad_norm > 0": min(gnorms) > 0,
+        f"gradient cosine >= {TRAIN_MIN_GRAD_COSINE}":
+            cosine >= TRAIN_MIN_GRAD_COSINE,
+        "restored bit-identical into fresh tensors": bit_identical and fresh,
+        f"replay within {TRAIN_REPLAY_RTOL} relative":
+            replay_err <= TRAIN_REPLAY_RTOL,
+        f"microbatches 2 within {TRAIN_MB_RTOL} relative":
+            abs(loss_mb2 - loss_mb1) <= TRAIN_MB_RTOL * abs(loss_mb1),
+        "compressed step finite": all(math.isfinite(v)
+                                      for v in compressed.values()),
+        "training launched no flash kernel":
+            train_counts["flash_attention"] == 0,
+        f"embed: {cfg.n_layers} flash launches, all wgmma":
+            embed_counts["flash_attention"] == cfg.n_layers
+            and bodies["flash_attention[wgmma]"] == cfg.n_layers,
+        f"embed cosine >= {LM_MIN_COSINE}": emb_cos >= LM_MIN_COSINE
+            and bool(torch.isfinite(emb).all()),
+        "flash refuses autograd": guard,
+    }
+    failed = [k for k, good in checks.items() if not good]
+    if failed:
+        print(f"lm train[{cfg.name}]: failed {failed}", flush=True)
+    for line in logs:
+        print(f"lm train[{cfg.name}] {line}", flush=True)
+    return rec, not failed
+
+
+def gc_collect(torch) -> None:
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_leg_b(torch, dev, cfg) -> tuple[dict, bool]:
+    """One config at full width, depth cut, trained: every gradient leaf
+    of the first step, then TRAIN_FAM_STEPS steps timed."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.models.api import Model, count_params
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import build_train_step, loss_and_grads
+
+    cfg = dataclasses.replace(cfg, attention_impl="torch")
+    model = Model(cfg)
+    params = model.init(torch.Generator(device=dev).manual_seed(2),
+                        device=dev)
+    batch = TokenPipeline(cfg.vocab, batch=TRAIN_FAM_B, seq=TRAIN_FAM_S,
+                          seed=0, encdec_dim=cfg.d_model
+                          if model.is_encdec else 0).next_batch(device=dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    ops.reset_launch_counts()
+    loss, metrics, grads = loss_and_grads(model, params, batch)
+    report = grad_report(torch, grads)
+    del grads
+    step = build_train_step(model, AdamWConfig(lr=3e-3, warmup_steps=1,
+                                               total_steps=10))
+    opt = init_opt_state(params)
+    ms, losses = [], []
+    for _ in range(TRAIN_FAM_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+    rec = {
+        "params_cut": count_params(cfg),
+        "params_full": count_params(get_arch(cfg.name)),
+        "ms_per_step": [round(x, 3) for x in ms],
+        "loss": losses, "aux": float(metrics["aux"]),
+        "grad_norm": float(m["grad_norm"]),
+        "peak_device_memory_gib": round(
+            torch.cuda.max_memory_allocated(dev) / 2**30, 2),
+        "grad_leaves": report["leaves"], "grad_none": report["none"],
+        "grad_non_finite": report["non_finite"],
+        "flash_launches": ops.launch_counts()["flash_attention"],
+    }
+    ok = (all(math.isfinite(x) for x in losses) and math.isfinite(
+        float(loss)) and not report["none"] and not report["non_finite"]
+        and rec["grad_norm"] > 0 and (rec["aux"] > 0 or not cfg.n_experts)
+        and rec["flash_launches"] == 0)
+    return rec, ok
+
+
+def train_phase(torch, dev) -> tuple[dict, bool]:
+    """Legs A and B of the train phase, each config's counts at 0 before
+    its path. Frees what the earlier phases held first."""
+    import dataclasses
+
+    from repro_torch.configs import get_arch
+
+    t_phase = time.perf_counter()
+    gc_collect(torch)
+    print(f"lm train: {torch.cuda.memory_allocated(dev) / 2**30:.2f} GiB "
+          "held by the earlier phases", flush=True)
+    out = {}
+    cfg = get_arch(TRAIN_ARCH)
+    rec, ok = train_leg_a(torch, dev)
+    print(f"lm train[{cfg.name}, {cfg.n_layers} layers, d={cfg.d_model}, "
+          f"params {cfg.param_dtype}, compute {cfg.compute_dtype}, remat "
+          f"{cfg.remat}, attention torch, B={TRAIN_B}, S={TRAIN_S}, "
+          f"{TRAIN_STEPS} steps]: {json.dumps(rec)}"
+          + ("" if ok else "  FAILED"), flush=True)
+    out[cfg.name] = rec
+    gc_collect(torch)
+    for name, cut in TRAIN_FAM_CUT.items():
+        cfg = dataclasses.replace(get_arch(name), **cut)
+        print(f"CUT: lm train families[{name}] depth {json.dumps(cut)} "
+              f"(full: {get_arch(name).n_layers} layers"
+              + (f", {get_arch(name).enc_layers} encoder layers"
+                 if cfg.family == "encdec" else "") + ")", flush=True)
+        rec, good = train_leg_b(torch, dev, cfg)
+        print(f"lm train families[{name}, d={cfg.d_model}, B={TRAIN_FAM_B}"
+              f", S={TRAIN_FAM_S}, {TRAIN_FAM_STEPS} steps]: "
+              f"{json.dumps(rec)}" + ("" if good else "  FAILED"),
+              flush=True)
+        out[f"families {name}"] = rec
+        ok &= good
+        gc_collect(torch)
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase[lm train]: {phase_s:.1f} s (budget {TRAIN_MAX_S:.0f} s)",
+          flush=True)
+    if phase_s > TRAIN_MAX_S:
+        print(f"phase[lm train]: over its {TRAIN_MAX_S:.0f} s", flush=True)
+        ok = False
+    return out, ok
+
+
 def run(args):
     import torch
 
@@ -3791,10 +4183,21 @@ def run(args):
     del index
     decoded, good = lm_decode_phase(torch, dev)
     ok &= good
+
+    # -- training: qwen3-0.6b at full width and depth, then every family --
+    trained, good = train_phase(torch, dev)
+    ok &= good
     flash_entry = next(e for e in kernels if e["name"] == "flash_attention")
     flash_entry["lm_decode_launches"] = {
         name: {k: rec[k] for k in ("flash_launches", "flash_bodies")}
         for name, rec in decoded.items()}
+    a = trained[TRAIN_ARCH]
+    flash_entry["lm_train_launches"] = {
+        "training": a["flash_launches_training"],
+        "embed_of_trained_weights": a["embed_flash_launches"],
+        "embed_bodies": a["embed_flash_bodies"],
+        "families_training": {name: rec["flash_launches"] for name, rec
+                              in trained.items() if name != TRAIN_ARCH}}
     for name in FLASH_PATH_SHAPES:
         flash_entry[f"at_{name.replace(' ', '_')}"] = {
             k: flash[name][k] for k in ("shape", "ms", "plain_ms", "bound_ms",

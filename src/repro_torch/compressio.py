@@ -17,7 +17,7 @@ import zlib
 
 from repro_torch.core import knobs as knobs_mod
 
-__all__ = ["compress", "decompress"]
+__all__ = ["compress", "compressor", "decompress", "codec", "level_of"]
 
 _ZSTD_MAGIC = b"\x28\xb5\x2f\xfd"
 
@@ -30,13 +30,36 @@ def _zstandard():
     return zstandard
 
 
+def codec() -> str:
+    """The codec :func:`compress` writes: ``"zstd"`` or ``"zlib"``."""
+    return "zlib" if _zstandard() is None else "zstd"
+
+
+def level_of(level: int | None) -> int:
+    """``level``, or the ``RTORCH_COMPRESS_LEVEL`` knob when None."""
+    return knobs_mod.get_int("RTORCH_COMPRESS_LEVEL") if level is None \
+        else level
+
+
 def compress(data: bytes, level: int | None = None) -> bytes:
-    if level is None:
-        level = knobs_mod.get_int("RTORCH_COMPRESS_LEVEL")
+    level = level_of(level)
     zstd = _zstandard()
     if zstd is not None:
         return zstd.ZstdCompressor(level=level).compress(data)
     return zlib.compress(data, level)
+
+
+def compressor(size: int = -1):
+    """A streaming compressor at the knob's level (``.compress(chunk) ->
+    bytes``, then ``.flush() -> bytes``) whose output :func:`decompress`
+    reads as one blob: zstd where installed, with ``size``, the total
+    input bytes, written into the frame so a one-shot decompressor takes
+    it; else zlib."""
+    level = level_of(None)
+    zstd = _zstandard()
+    if zstd is not None:
+        return zstd.ZstdCompressor(level=level).compressobj(size=size)
+    return zlib.compressobj(level)
 
 
 def decompress(data: bytes) -> bytes:

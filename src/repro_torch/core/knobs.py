@@ -100,7 +100,8 @@ REGISTRY: tuple[Knob, ...] = (
          "build"),
     # -- io -----------------------------------------------------------------
     Knob("RTORCH_COMPRESS_LEVEL", "int", 3, "int, default `3`",
-         "compression level of serialized index blobs (`compressio.py`; "
+         "compression level of serialized index blobs and checkpoints "
+         "(`compressio.py`; "
          "zstd where installed, else zlib). An explicit `level=` wins",
          "io"),
 )

@@ -100,10 +100,32 @@ def packb(obj) -> bytes:
     return b"".join(out)
 
 
+def bin_header(n: int) -> bytes:
+    """The type byte and length of a bin of ``n`` bytes."""
+    out: list = []
+    _pack_len(out, n, None, 0, (0xC4, 0xC5, 0xC6))
+    return out[0]
+
+
+def array_header(n: int) -> bytes:
+    """The header of an array of ``n`` items (the items follow it)."""
+    out: list = []
+    _pack_len(out, n, 0x90, 16, (None, 0xDC, 0xDD))
+    return out[0]
+
+
+def map_header(n: int) -> bytes:
+    """The header of a map of ``n`` pairs (key, value, key, ... follow)."""
+    out: list = []
+    _pack_len(out, n, 0x80, 16, (None, 0xDE, 0xDF))
+    return out[0]
+
+
 class _Reader:
-    def __init__(self, data):
+    def __init__(self, data, bin_views=False):
         self.buf = memoryview(data)
         self.pos = 0
+        self.bin_views = bin_views
 
     def take(self, n: int) -> memoryview:
         end = self.pos + n
@@ -156,7 +178,8 @@ def _unpack(r: _Reader):
     if t in _STR:
         return _str(r, r.unpack(_STR[t]))
     if t in _BIN:
-        return bytes(r.take(r.unpack(_BIN[t])))
+        view = r.take(r.unpack(_BIN[t]))
+        return view if r.bin_views else bytes(view)
     if t in _ARR:
         return [_unpack(r) for _ in range(r.unpack(_ARR[t]))]
     if t in _MAP:
@@ -176,10 +199,12 @@ def _map(r: _Reader, n: int) -> dict:
     return out
 
 
-def unpackb(data) -> object:
+def unpackb(data, *, bin_views: bool = False) -> object:
     """MessagePack bytes -> the object, as ``msgpack.unpackb(data)`` gives
-    it; ``ValueError`` on truncated, trailing or out-of-subset data."""
-    r = _Reader(data)
+    it; ``ValueError`` on truncated, trailing or out-of-subset data.
+    ``bin_views``: each bin as a read-only ``memoryview`` into ``data``
+    instead of a copy."""
+    r = _Reader(data, bin_views)
     obj = _unpack(r)
     if r.pos != len(r.buf):
         raise ValueError(

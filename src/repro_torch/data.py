@@ -1,17 +1,63 @@
-"""Deterministic synthetic RFANN data, numpy only.
+"""Deterministic synthetic data: the LM token stream and the RFANN
+vectors, drawn with numpy.
 
-Port-side copies of ``repro/data/pipeline.py::vector_dataset`` (line 78)
-and ``benchmarks/common.py::make_workload`` (line 61): the same seeds give
-the same arrays as the JAX package's, so a workload made here and one made
-there are the same workload.
+Port-side copies of ``repro/data/pipeline.py::TokenPipeline`` (line 27)
+and ``vector_dataset`` (line 78) and of
+``benchmarks/common.py::make_workload`` (line 61): the same seeds give
+the same arrays as the JAX package's, so a batch or a workload made here
+and one made there are the same.
 """
 from __future__ import annotations
 
 import dataclasses
 
 import numpy as np
+import torch
 
-__all__ = ["vector_dataset", "Workload", "make_workload"]
+__all__ = ["TokenPipeline", "vector_dataset", "Workload", "make_workload"]
+
+
+@dataclasses.dataclass
+class TokenPipeline:
+    """An endless seeded LM token stream: Zipfian unigrams with a bank of
+    64 repeated 8-grams spliced in, so a small model has something to
+    learn. Each batch is ``{"tokens", "targets"}`` int32 [batch, seq]
+    (the targets the tokens shifted by one), plus ``"frames"`` f32
+    [batch, seq, encdec_dim] when ``encdec_dim`` > 0 (the
+    encoder-decoder's stub frontend)."""
+    vocab: int
+    batch: int
+    seq: int
+    seed: int = 0
+    encdec_dim: int = 0
+
+    def __post_init__(self):
+        self._rng = np.random.default_rng(self.seed)
+        ranks = np.arange(1, self.vocab + 1, dtype=np.float64)
+        self._probs = (1.0 / ranks) / np.sum(1.0 / ranks)
+        self._ngrams = self._rng.integers(
+            0, self.vocab, size=(64, 8)).astype(np.int32)
+
+    def next_batch(self, device=None) -> dict:
+        """The next batch: numpy arrays, or tensors on ``device`` when one
+        is given (``repro`` takes ``shardings=`` there)."""
+        toks = self._rng.choice(
+            self.vocab, size=(self.batch, self.seq + 1), p=self._probs
+        ).astype(np.int32)
+        for b in range(self.batch):
+            for _ in range(max(1, self.seq // 64)):
+                g = self._ngrams[self._rng.integers(0, len(self._ngrams))]
+                pos = self._rng.integers(0, self.seq - len(g))
+                toks[b, pos:pos + len(g)] = g
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+        if self.encdec_dim:
+            batch["frames"] = self._rng.standard_normal(
+                (self.batch, self.seq, self.encdec_dim)).astype(np.float32)
+        if device is not None:
+            batch = {k: torch.as_tensor(np.ascontiguousarray(v),
+                                        device=device)
+                     for k, v in batch.items()}
+        return batch
 
 
 def vector_dataset(

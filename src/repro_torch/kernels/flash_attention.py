@@ -147,7 +147,17 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
     """q [B, Hq, Sq, Dh], k / v [B, Hkv, Skv, Dh] (CUDA; f32, bf16 or
     f16, one dtype; ``Hq % Hkv == 0``; ``Dh <= 256``) -> [B, Hq, Sq, Dh]
     dense, in q's dtype. Launches the body :func:`body_of` names, or
-    raises."""
+    raises; raises too when autograd would need its gradient (grad mode
+    on and q, k or v requiring grad), since the kernel has no backward."""
+    if torch.is_grad_enabled() and any(
+            isinstance(t, torch.Tensor) and t.requires_grad
+            for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention_cuda has no backward: its output would carry "
+            "no gradient to q, k and v. Train with "
+            "attention_impl=\"torch\" (the plain attention, "
+            "differentiated by autograd, as repro trains with \"xla\"), "
+            "or call it under torch.no_grad()")
     dev = q.device
     if q.dtype not in _DTYPES:
         raise TypeError(f"q: dtype {q.dtype}, expected one of "

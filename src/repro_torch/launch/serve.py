@@ -31,6 +31,7 @@ from repro_torch.serve.engine import Request, ServingEngine
 __all__ = ["embed_corpus", "main"]
 
 
+@torch.no_grad()
 def embed_corpus(model, params, n, seq, vocab, seed=0, batch=64):
     """Embed ``n`` items of ``seq`` token ids drawn uniformly from
     ``[0, vocab)`` by ``np.random.default_rng(seed)``, ``batch`` items per

@@ -3,6 +3,7 @@ the family (port of ``repro/models/api.py``).
 
     model = Model(get_arch("gemma2-9b"))
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    loss, metrics = model.loss(params, batch)  # tokens, targets (+ frames)
     logits, caches = model.prefill(params, tokens=tokens)  # + frames= (encdec)
     cache = model.grow_cache(caches, max_len)
     logits, cache = model.decode(params, token, cache, pos)
@@ -12,13 +13,17 @@ Every config of ``configs/`` runs: dense and MoE stacks, gemma2's
 local/global pairs, zamba2's mamba groups with a shared attention block,
 xLSTM and the encoder-decoder. Weights from ``repro`` carry across with
 :func:`params_from_numpy`, so both packages compute the same function.
-Decode updates the cache in place. Training (the loss) waits, ROADMAP
-queue 1 item 13b.
+Decode updates the cache in place. ``loss`` is differentiable (train it
+with ``train/step.py::build_train_step``); ``prefill``, ``decode`` and
+``embed`` serve and run under ``torch.no_grad()``, so parameters that
+require grad still go through the flash-attention kernel, which has no
+backward.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -28,7 +33,7 @@ from repro_torch.device import resolve_device
 from repro_torch.models import encdec, transformer
 from repro_torch.sharding import partitioning as part
 
-__all__ = ["Model", "count_params", "params_from_numpy"]
+__all__ = ["Model", "count_params", "params_from_numpy", "BatchSpec"]
 
 
 def _tokens(tokens, dev) -> torch.Tensor:
@@ -36,6 +41,12 @@ def _tokens(tokens, dev) -> torch.Tensor:
     if not isinstance(tokens, torch.Tensor):
         tokens = torch.as_tensor(np.asarray(tokens))
     return tokens.to(dev, torch.long)
+
+
+class BatchSpec(NamedTuple):
+    """The shape and dtype of one batch entry (no allocation)."""
+    shape: tuple
+    dtype: torch.dtype
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +74,31 @@ class Model:
         return part.init_params(self.defs(), generator,
                                 getattr(torch, self.cfg.param_dtype))
 
+    def loss(self, params, batch):
+        """Differentiable next-token loss of ``batch`` {"tokens",
+        "targets"} int [B, S] (and "frames" f32 [B, S_enc, d] for the
+        encoder-decoder; numpy or tensors, moved to the parameters'
+        device) -> (loss + 0.01 x MoE aux, {"nll", "aux"}), f32
+        scalars."""
+        dev = params["embed"]["table"].device
+        b = {"tokens": _tokens(batch["tokens"], dev),
+             "targets": _tokens(batch["targets"], dev)}
+        if self.is_encdec:
+            b["frames"] = torch.as_tensor(batch["frames"]).to(dev)
+        return self._mod().loss_fn(params, self.cfg, b)
+
+    def train_batch_specs(self, batch, seq) -> dict:
+        """The entries of a training batch as :class:`BatchSpec`s: int32
+        tokens and targets [batch, seq], and for the encoder-decoder
+        frames [batch, seq, d_model] in the compute dtype."""
+        tok = BatchSpec((batch, seq), torch.int32)
+        if self.is_encdec:
+            frames = BatchSpec((batch, seq, self.cfg.d_model),
+                               getattr(torch, self.cfg.compute_dtype))
+            return {"frames": frames, "tokens": tok, "targets": tok}
+        return {"tokens": tok, "targets": tok}
+
+    @torch.no_grad()
     def prefill(self, params, **inputs):
         """tokens [B, S] (and frames [B, S_enc, d] for the encoder-decoder)
         -> (last-position logits [B, padded_vocab], the prefill caches)."""
@@ -73,6 +109,7 @@ class Model:
             return encdec.prefill(params, self.cfg, frames, tokens)
         return transformer.prefill(params, self.cfg, tokens)
 
+    @torch.no_grad()
     def decode(self, params, token, cache, pos):
         """token [B, 1] at position ``pos`` -> (logits [B, 1, V], cache),
         the cache updated in place."""
@@ -110,6 +147,7 @@ class Model:
         _copy_into(out, caches)
         return out
 
+    @torch.no_grad()
     def embed(self, params, tokens) -> torch.Tensor:
         """Mean over positions of the f32 final hidden states: tokens int
         [B, S] (numpy or a tensor; moved to the parameters' device) ->

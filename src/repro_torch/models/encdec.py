@@ -6,8 +6,9 @@ precomputed frame embeddings [B, S_enc, d] through a linear adapter, then
 bidirectional attention blocks. The decoder is a causal stack with
 cross-attention over the encoder output; its K/V come once from
 ``attention.cross_kv`` (contiguous) and stay as the static cross cache,
-while the self-attention cache is updated in place each step. The loss
-waits with training (ROADMAP queue 1 item 13b).
+while the self-attention cache is updated in place each step. Under
+autograd each encoder and decoder block runs through
+``transformer._remat`` by ``cfg.remat``.
 """
 from __future__ import annotations
 
@@ -16,12 +17,12 @@ import torch
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
 from repro_torch.models import mlp as mlp_mod
-from repro_torch.models.transformer import _layer, _repeat, _stack, \
-    _stack_defs
+from repro_torch.models.transformer import _apply, _layer, _remat, \
+    _repeat, _stack, _stack_defs
 from repro_torch.sharding.partitioning import ParamDef
 
-__all__ = ["defs", "encode", "decode_seq", "prefill", "decode_step",
-           "init_cache"]
+__all__ = ["defs", "encode", "decode_seq", "loss_fn", "prefill",
+           "decode_step", "init_cache"]
 
 
 def _enc_block_defs(cfg):
@@ -56,23 +57,27 @@ def defs(cfg):
     }
 
 
+def _enc_block(bp, x, cfg, positions):
+    mix, _ = attn_mod.attention(bp["attn"], cfg, L.rms_norm(bp["norm1"], x),
+                                positions, causal=False)
+    x = x + mix
+    return x + mlp_mod.mlp(bp["ffn"], cfg, L.rms_norm(bp["norm2"], x))
+
+
 def encode(params, cfg, frames):
     """frames [B, S_enc, d_model] (the stub frontend's output) -> the
     encoder's hidden states in the compute dtype."""
     ct = getattr(torch, cfg.compute_dtype)
     x = torch.einsum("bsd,de->bse", frames.to(ct), params["enc_in"].to(ct))
     positions = torch.arange(frames.shape[1], device=frames.device)
+    block = _remat(_enc_block, cfg)
     for i in range(cfg.enc_layers):
-        bp = _layer(params["enc_blocks"], i)
-        mix, _ = attn_mod.attention(bp["attn"], cfg,
-                                    L.rms_norm(bp["norm1"], x), positions,
-                                    causal=False)
-        x = x + mix
-        x = x + mlp_mod.mlp(bp["ffn"], cfg, L.rms_norm(bp["norm2"], x))
+        x = block(_layer(params["enc_blocks"], i), x, cfg, positions)
     return L.rms_norm(params["enc_norm"], x)
 
 
-def _dec_block_seq(bp, cfg, x, positions, enc_out):
+def _dec_block_seq(bp, x, cfg, positions, enc_out):
+    """One decoder block -> (x', (self K/V, cross K/V), 0.0)."""
     h = L.rms_norm(bp["norm1"], x)
     mix, (k, v) = attn_mod.attention(bp["self_attn"], cfg, h, positions,
                                      causal=True)
@@ -83,7 +88,7 @@ def _dec_block_seq(bp, cfg, x, positions, enc_out):
                                causal=False, kv=(ck, cv))
     x = x + cx
     x = x + mlp_mod.mlp(bp["ffn"], cfg, L.rms_norm(bp["norm2"], x))
-    return x, {"k": k, "v": v}, {"k": ck, "v": cv}
+    return x, ({"k": k, "v": v}, {"k": ck, "v": cv}), 0.0
 
 
 def decode_seq(params, cfg, tokens, enc_out, *, collect_cache=False):
@@ -95,13 +100,25 @@ def decode_seq(params, cfg, tokens, enc_out, *, collect_cache=False):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     sc, cc = [], []
     for i in range(cfg.n_layers):
-        x, s, c = _dec_block_seq(_layer(params["dec_blocks"], i), cfg, x,
-                                 positions, enc_out)
+        x, c, _ = _apply(_dec_block_seq, cfg, collect_cache,
+                         _layer(params["dec_blocks"], i), x, cfg, positions,
+                         enc_out)
         if collect_cache:
-            sc.append(s)
-            cc.append(c)
+            sc.append(c[0])
+            cc.append(c[1])
     caches = (_stack(sc), _stack(cc)) if collect_cache else None
     return L.rms_norm(params["final_norm"], x), caches
+
+
+def loss_fn(params, cfg, batch):
+    """batch {"frames" [B, S_enc, d], "tokens", "targets" [B, S_dec]} ->
+    (CE over the tied embedding, {"nll", "aux": 0})."""
+    enc_out = encode(params, cfg, batch["frames"])
+    hidden, _ = decode_seq(params, cfg, batch["tokens"], enc_out)
+    loss = L.chunked_cross_entropy(params["embed"]["table"], hidden,
+                                   batch["targets"], cfg)
+    return loss, {"nll": loss, "aux": torch.zeros(
+        (), dtype=torch.float32, device=hidden.device)}
 
 
 def prefill(params, cfg, frames, tokens):

@@ -101,7 +101,10 @@ def mamba_seq(p, cfg, x):
         seg = cum[:, :, None, :] - cum[:, None, :, :]          # [B, t, s, H]
         tri = torch.tril(torch.ones((n, n), dtype=torch.bool,
                                     device=x.device))
-        decay = torch.where(tri[None, :, :, None], torch.exp(seg), 0.0)
+        # masked before the exp: exp(seg) above the diagonal overflows at
+        # long chunks, and an inf there makes a NaN gradient
+        decay = torch.exp(seg.masked_fill(~tri[None, :, :, None],
+                                          float("-inf")))
         cb = torch.einsum("btn,bsn->bts", Ccc, Bcc)
         y = torch.einsum("btsh,bshp->bthp", cb[..., None] * decay, xc)
         # from the state entering the chunk: exp(cum_t) C_t . H

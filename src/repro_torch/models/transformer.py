@@ -13,13 +13,21 @@ tail). The layers run one after another in a Python loop over the
 leading dim (``repro`` scans them); the caches keep ``repro``'s stacked
 trees, and decode updates them in place.
 
+Under autograd each repeating unit of the stack (a block; gemma2's
+local/global pair; xLSTM's group of four; zamba2's group of mamba layers
+with the shared block after it, and each tail layer) runs through
+:func:`_remat` by ``cfg.remat``, as ``repro`` wraps its scan bodies.
+
 Public surface: ``defs``, ``forward_seq``, ``compute_logits``,
-``prefill``, ``init_cache``, ``decode_step``. The loss waits with
-training (ROADMAP queue 1 item 13b).
+``loss_fn``, ``prefill``, ``init_cache``, ``decode_step``.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, \
+    create_selective_checkpoint_contexts
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import layers as L
@@ -28,7 +36,7 @@ from repro_torch.models import mlp as mlp_mod
 from repro_torch.models import xlstm as xlstm_mod
 from repro_torch.sharding.partitioning import ParamDef
 
-__all__ = ["defs", "forward_seq", "compute_logits", "prefill",
+__all__ = ["defs", "forward_seq", "compute_logits", "loss_fn", "prefill",
            "init_cache", "decode_step", "layer_kinds"]
 
 _XLSTM_GROUP = (("m0", "mlstm"), ("m1", "mlstm"), ("m2", "mlstm"),
@@ -230,12 +238,79 @@ def _add_aux(aux, a):
     return aux + a if torch.is_tensor(a) else aux
 
 
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    """The ``"dots"`` policy: keep the outputs of matrix products, recompute
+    the rest (``jax.checkpoint_policies.checkpoint_dots``)."""
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat(fn, cfg):
+    """``fn`` as one repeating unit runs under ``cfg.remat``: ``"none"``
+    keeps every activation for backward; ``"full"`` keeps the unit's
+    inputs and recomputes the rest in backward; ``"dots"`` keeps the
+    outputs of its matrix products too. Without autograd ``fn`` runs
+    as it is."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: expected none, full or dots")
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    return functools.partial(checkpoint, fn, use_reentrant=False, **kw)
+
+
+def _unit_seq(bp, x, cfg, kinds, positions):
+    """One repeating unit of the stack: (x', cache seeds, MoE aux)."""
+    if isinstance(kinds, str):
+        return block_seq(bp, cfg, kinds, x, positions)
+    c, aux = {}, 0.0
+    for key, kind in kinds:
+        x, c[key], a = block_seq(bp[key], cfg, kind, x, positions)
+        aux = _add_aux(aux, a)
+    return x, c, aux
+
+
+def _group_seq(bps, x, cfg, sp, positions):
+    """zamba2's unit: mamba layers ``bps`` then the shared attention block
+    ``sp`` -> (x', ([mamba cache seeds], attention's), MoE aux)."""
+    mcs, aux = [], 0.0
+    for bp in bps:
+        x, c, a = block_seq(bp, cfg, "mamba", x, positions)
+        mcs.append(c)
+        aux = _add_aux(aux, a)
+    x, ac, a = block_seq(sp, cfg, "attn", x, positions)
+    return x, (mcs, ac), _add_aux(aux, a)
+
+
+def _apply(unit, cfg, collect_cache, params, x, *rest):
+    """``unit(params, x, *rest) -> (x', cache, aux)``, through
+    :func:`_remat` unless the caches are collected (prefill), which keeps
+    them and runs as it is."""
+    if collect_cache:
+        return unit(params, x, *rest)
+
+    def no_cache(params, x):
+        x, _, aux = unit(params, x, *rest)
+        return x, aux
+
+    x, aux = _remat(no_cache, cfg)(params, x)
+    return x, None, aux
+
+
 def forward_seq(params, cfg, tokens, *, collect_cache=False):
     """tokens int [B, S] -> (hidden [B, S, d] after the final norm, in the
     compute dtype; the per-layer prefill caches stacked as ``repro``'s
     scans stack them, or None; the summed MoE aux loss, an f32 tensor, or
     0.0 where no block has experts: a dense stack adds nothing on the
-    card)."""
+    card). Each repeating unit runs through :func:`_remat` unless
+    ``collect_cache``."""
     ct = getattr(torch, cfg.compute_dtype)
     x = L.embed_lookup(params["embed"], tokens, ct)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -246,19 +321,17 @@ def forward_seq(params, cfg, tokens, *, collect_cache=False):
         sp = params["shared_attn"]
         gm, ga, rm = [], [], []
         for grp in groups:
-            mcs = []
-            for i in grp:
-                x, c, a = block_seq(_layer(params["blocks"], i), cfg,
-                                    "mamba", x, positions)
-                mcs.append(c)
-                aux = _add_aux(aux, a)
-            x, c, a = block_seq(sp, cfg, "attn", x, positions)
+            bps = [_layer(params["blocks"], i) for i in grp]
+            x, c, a = _apply(_group_seq, cfg, collect_cache, bps, x, cfg,
+                             sp, positions)
             aux = _add_aux(aux, a)
-            gm.append(_stack(mcs))
-            ga.append(c)
+            if collect_cache:
+                gm.append(_stack(c[0]))
+                ga.append(c[1])
         for i in tail:
-            x, c, a = block_seq(_layer(params["blocks"], i), cfg, "mamba",
-                                x, positions)
+            x, c, a = _apply(_unit_seq, cfg, collect_cache,
+                             _layer(params["blocks"], i), x, cfg, "mamba",
+                             positions)
             rm.append(c)
             aux = _add_aux(aux, a)
         caches = None
@@ -269,14 +342,9 @@ def forward_seq(params, cfg, tokens, *, collect_cache=False):
 
     seeds = []
     for bp, kinds in _units(cfg, params["blocks"]):
-        if isinstance(kinds, str):
-            x, c, a = block_seq(bp, cfg, kinds, x, positions)
-            aux = _add_aux(aux, a)
-        else:
-            c = {}
-            for key, kind in kinds:
-                x, c[key], a = block_seq(bp[key], cfg, kind, x, positions)
-                aux = _add_aux(aux, a)
+        x, c, a = _apply(_unit_seq, cfg, collect_cache, bp, x, cfg, kinds,
+                         positions)
+        aux = _add_aux(aux, a)
         if collect_cache:
             seeds.append(c)
     caches = _stack(seeds) if collect_cache else None
@@ -284,11 +352,26 @@ def forward_seq(params, cfg, tokens, *, collect_cache=False):
 
 
 # ---------------------------------------------------------------------------
-# serve entry points
+# train / serve entry points
 # ---------------------------------------------------------------------------
 
 def compute_logits(params, cfg, hidden):
     return L.logits(params["embed"], params.get("head"), hidden, cfg)
+
+
+def loss_fn(params, cfg, batch):
+    """Next-token CE of ``batch`` {"tokens", "targets"} (long tensors on
+    the parameters' device; targets of -1 ignored) plus 0.01 x the MoE
+    aux loss -> (loss, {"nll", "aux"}), f32 scalars. The CE stays in the
+    compute dtype with f32 sums, a chunk of positions at a time
+    (:func:`layers.chunked_cross_entropy`)."""
+    hidden, _, aux = forward_seq(params, cfg, batch["tokens"])
+    w = params["embed"]["table"] if cfg.tie_embeddings else \
+        params["head"]["w"]
+    loss = L.chunked_cross_entropy(w, hidden, batch["targets"], cfg)
+    if not torch.is_tensor(aux):
+        aux = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    return loss + 0.01 * aux, {"nll": loss, "aux": aux}
 
 
 def prefill(params, cfg, tokens):

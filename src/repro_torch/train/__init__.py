@@ -1,3 +1,4 @@
-"""The step builders of the port (port of ``repro/train``): the serving
-steps for now; the training step, the optimizer and gradient compression
-wait (ROADMAP queue 1 item 13b)."""
+"""Training and serving steps of the port (port of ``repro/train``): the
+train step with microbatches and int8 error-feedback compression
+(``step.py``), AdamW (``optimizer.py``), the compression itself
+(``compression.py``), and the prefill and greedy decode steps."""

@@ -617,6 +617,24 @@ def test_flash_attention_tensor_core_row_seeing_no_key_is_zero(dev):
     assert torch.equal(got, torch.zeros_like(got))
 
 
+def test_flash_attention_refuses_autograd(dev):
+    """Under grad mode an input that requires grad makes the wrapper
+    raise before it launches (the kernel has no backward, so its output
+    would carry no gradient); under torch.no_grad() the same inputs
+    launch."""
+    qkv = _qkv(dev, 1, 2, 2, 8, 8, 64, torch.bfloat16, seed=5)
+    for i in range(3):
+        args = list(qkv)
+        args[i] = args[i].detach().requires_grad_(True)
+        ops.reset_launch_counts()
+        with pytest.raises(RuntimeError, match="no backward"):
+            flash_attention_cuda(*args)
+        assert ops.launch_counts()["flash_attention"] == 0
+        with torch.no_grad():
+            flash_attention_cuda(*args)
+        assert ops.launch_counts()["flash_attention"] == 1
+
+
 def test_flash_attention_tensor_core_needs_tma_strides(dev):
     """A 16-bit input whose position stride is not a multiple of 16
     bytes goes to no other body: the wrapper raises."""

@@ -2,7 +2,7 @@
 
   * No file under ``src/repro_torch/`` (``core/``, ``kernels/``,
     ``configs/``, ``models/``, ``sharding/``, ``serve/``, ``launch/``,
-    ``bench/``),
+    ``bench/``, ``train/``, ``checkpoint/``, ``runtime/``),
     and neither ``chip_smoke.py`` nor ``prune_time.py``, imports ``jax``, ``repro``, ``msgpack`` or
     ``ml_dtypes`` (an AST scan), nor ``zstandard`` outside
     ``compressio.py``, which imports it where it compresses and only when
@@ -54,7 +54,7 @@ def test_scan_covers_every_port_package():
     dirs = {p.parent.relative_to(PORT).as_posix() for p in _port_files()
             if PORT in p.parents}
     assert {"core", "kernels", "configs", "models", "sharding", "serve",
-            "launch", "bench"} <= dirs
+            "launch", "bench", "train", "checkpoint", "runtime"} <= dirs
 
 
 @pytest.mark.parametrize("path", _port_files(), ids=lambda p: p.name)
@@ -78,10 +78,14 @@ def test_import_with_reference_and_codec_packages_blocked():
         "from repro_torch import configs, serve\n"
         "from repro_torch.models import api, attention, transformer\n"
         "from repro_torch.models import encdec, mamba2, mlp, xlstm\n"
-        "from repro_torch.train import step\n"
+        "from repro_torch.train import step, optimizer, compression\n"
+        "from repro_torch.checkpoint import checkpoint\n"
+        "from repro_torch.runtime import trainer\n"
         "from repro_torch.launch import serve as launch_serve\n"
+        "from repro_torch.launch import train as launch_train\n"
         "from repro_torch.sharding import partitioning\n"
         "import repro_torch.bench.roofline, repro_torch.bench.buildpath\n"
+        "import repro_torch.bench.ckpt_io\n"
         "import repro_torch.bench.run, repro_torch.bench.fig2_qps_recall\n"
         "from repro_torch.core import baselines, multiattr\n"
         "from repro_torch.core import rng\n"
