@@ -178,6 +178,22 @@ the full-size run, one card). It
      against its default plan's outputs (a refused one fails); prints
      each kind's pick, its time and the default plan's
      (``hotpath[...]``), then the three new phases' seconds;
+  11c'. the benchmark gate and two contract checks (``gate_phase``,
+     ``sync_phase``, ``smem_phase``; at most GATE_MAX_S together):
+     ``bench/buildpath.py --smoke`` and ``bench/serve_slo.py --smoke``
+     into ``build/`` beside 11c's hot-path smoke record, then
+     ``bench/ci_gate.py --smoke-dir build`` against the committed
+     ``artifacts/BENCH_torch_{hotpath,build,serve_slo}.json``: every
+     ``ok:`` and ``::warning::`` line and the ``allow`` marker count
+     printed (``gate: ...``), exit 1 fails; ``contracts[sync, fused]``
+     and ``contracts[sync, composed]``: 64 of the 1M queries searched
+     under ``torch.cuda.set_sync_debug_mode("warn")``, every sync located
+     by file and line, which must be ``beam_search``'s loop checks (one
+     per ITER_BLOCK and one at the end) and the named ones before the
+     loop (SYNC_NAMED), none inside ``body``; ``contracts[smem]``: every
+     launch plan's shared memory from the Python mirror against the C
+     formula its library exports (``kernels/smem_budget.py``), all equal
+     and within the block limit;
   11d. frees what the earlier phases held and serves every model family
      through ``train/step.py``'s prefill and greedy decode steps
      (``lm_decode_phase``), each config's counts at 0 before its served
@@ -2874,6 +2890,180 @@ def hotpath_phase(torch) -> tuple[dict, bool]:
     return records, bool(ok)
 
 
+# The benchmark gate and the port's contract checks on the card (R3, R4 of
+# tests/test_torch_contracts.py; GATE_MAX_S for the three together)
+GATE_MAX_S = 120.0
+SYNC_QUERIES = 64
+# syncs of a search outside beam_search's loop, by file and function: each
+# a host-to-device copy of the caller's inputs before the loop starts
+SYNC_NAMED = {
+    ("core/index.py", "_on_device"): (3, "the queries, L and R to the card"),
+    ("core/search.py", "range_entry_ids"): (1, "the entry fractions to the "
+                                              "card"),
+}
+
+
+def gate_phase(torch) -> bool:
+    """``bench/buildpath.py --smoke`` and ``bench/serve_slo.py --smoke``
+    into ``build/``, beside ``hotpath_phase``'s smoke record, then
+    ``bench/ci_gate.py`` on the three against the committed
+    ``artifacts/BENCH_torch_*.json``; every line of the gate printed.
+    Fails when a bench fails or the gate exits 1 (a shape or correctness
+    error; timing drift only warns)."""
+    import io
+
+    from repro_torch.bench import buildpath, ci_gate, serve_slo
+
+    out_dir = os.path.join(ROOT, "build")
+    rc_build = buildpath.main(["--smoke", "--out", os.path.join(
+        out_dir, "BENCH_torch_build_smoke.json")])
+    rc_slo = serve_slo.main(["--smoke", "--out-dir", out_dir])
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = ci_gate.main(["--smoke-dir", out_dir])
+    lines = buf.getvalue().splitlines()
+    for line in lines:
+        print(f"gate: {line}", flush=True)
+    warn = sum(line.startswith("::warning::") for line in lines)
+    err = sum(line.startswith("::error::") for line in lines)
+    print(f"gate: buildpath --smoke exit {rc_build}, serve_slo --smoke exit "
+          f"{rc_slo}, ci_gate exit {rc}: {err} errors, {warn} timing "
+          "warnings", flush=True)
+    return rc == 0 and rc_build == 0 and rc_slo == 0
+
+
+def _functions_of(path) -> list:
+    """``(first line, last line, qualified name)`` of every function in
+    ``path``, innermost last."""
+    import ast
+
+    out = []
+
+    def walk(node, prefix):
+        for n in ast.iter_child_nodes(node):
+            if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef)):
+                name = f"{prefix}{n.name}"
+                out.append((n.lineno, n.end_lineno, name))
+                walk(n, name + ".")
+            else:
+                walk(n, prefix)
+
+    with open(path) as f:
+        walk(ast.parse(f.read()), "")
+    return out
+
+
+def sync_phase(torch, index, wl, lo_val, hi_val) -> bool:
+    """R3 on the card: one fused and one composed ``index.search`` of
+    SYNC_QUERIES of the 1M workload's queries under
+    ``torch.cuda.set_sync_debug_mode("warn")``, every warning recorded
+    with the line that made it. The count must be the loop's checks (the
+    ``while`` test of ``beam_search``: one per ITER_BLOCK iterations run
+    and one that ends the loop, unless ``max_iters`` ends it) plus
+    SYNC_NAMED, each at its site; a sync inside ``body`` fails."""
+    import ast
+    import warnings
+
+    from repro_torch import SearchConfig
+    from repro_torch.core import search as search_mod
+    from repro_torch.kernels import ops
+
+    src = os.path.join(ROOT, "src", "repro_torch")
+    spath = os.path.join(src, "core", "search.py")
+    funcs = {}
+
+    def where(path, line):
+        rel = os.path.relpath(path, src).replace(os.sep, "/")
+        if rel not in funcs:
+            funcs[rel] = _functions_of(path) if os.path.exists(path) else []
+        inner = [f for f in funcs[rel] if f[0] <= line <= f[1]]
+        return rel, (inner[-1][2] if inner else "<module>")
+
+    spans = {name: (a, b) for a, b, name in _functions_of(spath)}
+    body = spans["beam_search.body"]
+    with open(spath) as f:
+        tree = ast.parse(f.read())
+    loop = next(n.lineno for n in ast.walk(tree) if isinstance(n, ast.While)
+                and spans["beam_search"][0] <= n.lineno
+                <= spans["beam_search"][1])
+    q, lo, hi = (wl.queries[:SYNC_QUERIES], lo_val[:SYNC_QUERIES],
+                 hi_val[:SYNC_QUERIES])
+    ok = True
+    for name, kernel in (("fused", "hop"), ("composed", "select_edges")):
+        cfg = SearchConfig(ef=64, expand_width=4, hop_impl=(
+            "cuda" if name == "fused" else "composed"))
+        index.search(q, lo, hi, k=10, config=cfg)  # warm
+        torch.cuda.synchronize()
+        before = ops.launch_counts()[kernel]
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as rec:
+                warnings.simplefilter("always")
+                index.search(q, lo, hi, k=10, config=cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        iters = ops.launch_counts()[kernel] - before  # one a body call
+        max_iters = 4 * cfg.ef + 32
+        blocks = -(-iters // search_mod.ITER_BLOCK)
+        want_loop = blocks + (1 if iters < max_iters else 0)
+        sites: dict = {}
+        for w in rec:
+            if "synchronizing CUDA operation" not in str(w.message):
+                continue
+            key = (*where(w.filename, w.lineno), w.lineno)
+            sites[key] = sites.get(key, 0) + 1
+        in_body = sum(c for (rel, _, line), c in sites.items()
+                      if rel == "core/search.py"
+                      and body[0] <= line <= body[1])
+        at_loop = sites.get(("core/search.py", "beam_search", loop), 0)
+        named = {k: 0 for k in SYNC_NAMED}
+        other = []
+        for (rel, fn, line), c in sites.items():
+            if (rel, fn) in named:
+                named[rel, fn] += c
+            elif not (rel == "core/search.py" and line == loop):
+                other.append(f"{rel}:{line} ({fn}) x{c}")
+        good = (in_body == 0 and at_loop == want_loop and not other
+                and all(named[k] == SYNC_NAMED[k][0] for k in named))
+        ok &= good
+        total = sum(sites.values())
+        print(f"contracts[sync, {name}]: {SYNC_QUERIES} queries, {iters} "
+              f"iterations in {blocks} blocks of {search_mod.ITER_BLOCK}: "
+              f"{total} syncs = {at_loop} loop checks at core/search.py:"
+              f"{loop} (beam_search's while test; want {want_loop}) + "
+              + " + ".join(
+                  f"{named[k]} in {k[0]}::{k[1]} (want {n}: {why})"
+                  for k, (n, why) in SYNC_NAMED.items())
+              + f"; inside body (core/search.py:{body[0]}-{body[1]}) "
+              f"{in_body}; unnamed {other}; sites "
+              + json.dumps([f"{rel}:{line} {fn} x{c}" for (rel, fn, line), c
+                            in sorted(sites.items())])
+              + ("" if good else "  FAILED"), flush=True)
+    return bool(ok)
+
+
+def smem_phase() -> bool:
+    """R4 on the card: every launch plan's shared memory from its Python
+    mirror against the C formula its library exports
+    (``kernels/smem_budget.py::c_mismatches``), over every autotune
+    candidate at every probe and production shape and both flash bodies
+    and pairwise_dist; and no plan over the card's block limit."""
+    from repro_torch.kernels import smem_budget
+
+    n, bad = smem_budget.c_mismatches()
+    over = smem_budget.findings()
+    kinds: dict = {}
+    for e in smem_budget.entries():
+        kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+    largest = max(e["bytes"] for e in smem_budget.entries())
+    print(f"contracts[smem]: {n} plans, C size function against the Python "
+          f"mirror: {len(bad)} differ; by kind {json.dumps(kinds)}; largest "
+          f"{largest} B of {smem_budget.LIMIT}; findings {json.dumps(over)}"
+          + ("" if not bad else f"; differing {json.dumps(bad[:8])}")
+          + ("" if not (bad or over) else "  FAILED"), flush=True)
+    return not bad and not over
+
+
 # The lm decode phase: prefill and greedy decode with KV and state caches
 # (models/, train/step.py). Leg A serves gemma2-9b at full width and depth
 # (params f32, compute bf16, seeded weights): DEC_B prompts of DEC_PROMPT
@@ -4177,6 +4367,20 @@ def run(args):
                 for r in tuned[kind]}
     print(f"phase[knobs + oracles + hotpath]: {new_phases_s:.1f} s "
           f"(budget {NEW_PHASES_MAX_S:.0f} s)", flush=True)
+
+    # -- the benchmark gate; the contract checks R3 (host syncs) and R4
+    # (shared memory) on the card ------------------------------------------
+    t_phase = time.perf_counter()
+    ok &= gate_phase(torch)
+    ok &= sync_phase(torch, index, wl, lo_val, hi_val)
+    ok &= smem_phase()
+    phase_s = time.perf_counter() - t_phase
+    print(f"phase[gate + contracts]: {phase_s:.1f} s (budget "
+          f"{GATE_MAX_S:.0f} s)", flush=True)
+    if phase_s > GATE_MAX_S:
+        print(f"phase[gate + contracts]: over its {GATE_MAX_S:.0f} s",
+              flush=True)
+        ok = False
 
     # -- prefill and decode of every family: gemma2-9b served at full width,
     # the others at full width and one repeating unit of depth -------------

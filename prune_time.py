@@ -5,8 +5,9 @@ hop kernels and edge_select of one source tree at the paths' shapes.
 ``python3 prune_time.py <src dir> [parts]`` imports ``repro_torch`` from
 ``<src dir>`` (a checkout's ``src``), builds its kernels, and times them
 on the card; ``parts`` is a comma-separated subset of ``prune,
-prune_designs,flash,pairwise,pairwise_exact,gather,hop,edge,search``
-(default: all but prune_designs, gather, hop, edge and search).
+prune_designs,flash,pairwise,pairwise_exact,gather,hop,edge,search,
+codecs`` (default: all but prune_designs, gather, hop, edge, search and
+codecs).
 
   * prune: n = 1,000,000 random f32 rows of d = 128, B = 16,384 nodes, C =
     80 candidates drawn from a 4,096-row segment (a search level) and C =
@@ -68,6 +69,13 @@ prune_designs,flash,pairwise,pairwise_exact,gather,hop,edge,search``
     (``search_part``), the index built by the first run and loaded from
     ``build/`` by every run, so that two trees search one graph.
 
+  * codecs (not timed): ``bench/hotpath.py::bench_storage_footprint``
+    on wit-like with 64 queries, as the committed hot-path record, for
+    the build seeds in CODEC_SEEDS: each codec leg's ``recall_delta``
+    (compact, int8, PQ with rerank) against the same build in f32, and
+    each leg's least and largest delta over the seeds, beside
+    ``bench/ci_gate.py``'s cap of 0.01.
+
 Prints one JSON line: ms per launch by CUDA events over 20 launches (5 at
 the long shapes) after 3 warm-ups (gather and hop: by device time, as
 above), and the checks above. To compare two trees, run it once per tree
@@ -85,7 +93,8 @@ import torch  # noqa: E402
 from repro_torch.kernels import _build, ref  # noqa: E402
 
 PARTS = ("prune", "prune_designs", "flash", "pairwise", "pairwise_exact",
-         "gather", "hop", "edge", "search")
+         "gather", "hop", "edge", "search", "codecs")
+CODEC_SEEDS = (0, 1, 2, 3, 4)
 LAYOUT_F32 = ("f32",)
 LAYOUTS_ALL = ("f32", "bf16", "f16", "int8", "pq")
 DEFAULT_PARTS = ("prune", "flash", "pairwise", "pairwise_exact")
@@ -500,6 +509,30 @@ def search_part(out, dev, g):
     out["search_qps"] = qps
     out["search_qps_median"] = sorted(qps)[len(qps) // 2]
     out["search_ids_digest"] = digest(ids)
+
+
+def codecs_part(out, dev, g):
+    """The codec legs' recall deltas over build seeds (see the module
+    docstring)."""
+    from repro_torch.bench import hotpath
+
+    legs = {"compact": [], "int8": [], "pq": []}
+    for seed in CODEC_SEEDS:
+        sf = hotpath.bench_storage_footprint(dev, "wit-like", n_queries=64,
+                                             seed=seed)
+        legs["compact"].append(sf["recall_delta"])
+        legs["int8"].append(sf["int8"]["recall_delta"])
+        legs["pq"].append(sf["pq"]["recall_delta"])
+        print(f"codecs[seed {seed}]: f32 recall "
+              f"{sf['f32']['recall']:.4f}; recall_delta compact "
+              f"{legs['compact'][-1]:+.4f} int8 {legs['int8'][-1]:+.4f} pq "
+              f"{legs['pq'][-1]:+.4f}", flush=True)
+    out["codecs"] = {
+        "seeds": list(CODEC_SEEDS), "recall_delta": legs,
+        "min": {k: min(v) for k, v in legs.items()},
+        "max": {k: max(v) for k, v in legs.items()},
+        "over_cap_0.01": {k: [s for s, x in zip(CODEC_SEEDS, v)
+                              if abs(x) > 0.01] for k, v in legs.items()}}
 
 
 def flash_part(out, dev, g):

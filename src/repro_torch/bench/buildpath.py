@@ -22,12 +22,21 @@ rows with a near-tie keep decision, in at most 0.1% of rows
 table; a cuda build gives the same table or, where a near tie changed a
 level, tables whose per-layer edge overlap (mean Jaccard) is >= 0.95.
 
+The record's ratios, as ``repro``'s: ``prune_speedup_best``, the best
+over ``prune_step`` rows of the legacy backend's µs over the fused
+backend's (``cuda`` on the card, ``torch`` on the CPU), and
+``build_speedup``, the legacy build's ``total_s`` over the fused one's.
+``bench/ci_gate.py`` compares a smoke run's ``prune_speedup_best`` with
+the committed record's ``smoke_ref``.
+
 Run: ``python -m repro_torch.bench.buildpath [--smoke] [--device cpu]
 [--n 32768] [--d 64] [--m 16] [--efc 64] [--brute-threshold 128]
 [--chunks 512,2048,4096] [--iters 8] [--e2e-n 8192] [--no-e2e]
-[--out PATH]``. Writes ``artifacts/BENCH_torch_build.json``
-(``..._smoke.json`` under ``--smoke``) or ``--out``; exits 1 when parity
-fails.
+[--out PATH] [--update-smoke-ref]``. Writes
+``artifacts/BENCH_torch_build.json`` (``..._smoke.json`` under
+``--smoke``) or ``--out``; a full run carries the committed record's
+``smoke_ref`` forward and ``--smoke --update-smoke-ref`` rewrites it.
+Exits 1 when parity fails.
 """
 from __future__ import annotations
 
@@ -185,6 +194,9 @@ def main(argv=None) -> int:
     ap.add_argument("--smoke", action="store_true",
                     help="tiny shapes, few iterations: a probe of shapes "
                          "and parity, not a measurement")
+    ap.add_argument("--update-smoke-ref", action="store_true",
+                    help="with --smoke: record this run's ratio as the "
+                         "committed record's smoke_ref")
     ap.add_argument("--out", default=None,
                     help="where to write the JSON record")
     args = ap.parse_args(argv)
@@ -195,6 +207,7 @@ def main(argv=None) -> int:
         args.iters, args.e2e_n = 2, 1024
     chunks = tuple(int(c) for c in args.chunks.split(","))
     backends = backends_for(device)
+    fused = backends[-1]
 
     step_rows, step_parity = bench_prune_step(
         args.n, args.d, args.m, args.efc, args.brute_threshold, chunks,
@@ -202,20 +215,26 @@ def main(argv=None) -> int:
     for r in step_rows:
         print(f"prune {r['kind']:7s} C={r['C']:3d} chunk={r['chunk']:5d}: "
               + "  ".join(f"{b} {r[f'{b}_us']:.0f}us" for b in backends))
-    e2e, e2e_parity, agree = None, True, None
+    best = max(r[f"{fused}_speedup"] for r in step_rows)
+    e2e, e2e_parity, agree, e2e_speedup = None, True, None, None
     if not args.no_e2e:
         e2e, e2e_parity, agree = bench_build_levels(
             args.e2e_n, args.d, args.m, args.efc, args.brute_threshold,
             device, backends)
+        e2e_speedup = e2e["legacy"]["total_s"] / e2e[fused]["total_s"]
         print(f"e2e build n={args.e2e_n}: " + "  ".join(
             f"{b} {e2e[b]['total_s']:.2f}s" for b in backends)
-              + f"; {json.dumps(agree)}")
+              + f" ({e2e_speedup:.2f}x legacy/{fused}); "
+              + json.dumps(agree))
+    print(f"prune_speedup_best ({fused} over legacy): {best:.2f}x")
     payload = {
         "host": {**common.device_info(device), "smoke": args.smoke},
+        "card_line": common.card_line() if device.type == "cuda" else None,
         "config": {"n": args.n, "d": args.d, "m": args.m, "efc": args.efc,
                    "brute_threshold": args.brute_threshold,
                    "chunks": list(chunks), "iters": args.iters,
-                   "e2e_n": args.e2e_n, "backends": list(backends)},
+                   "e2e_n": args.e2e_n, "backends": list(backends),
+                   "fused_impl": fused},
         "auto_chunk": {
             "budget_mb": knobs_mod.get_int("RTORCH_CHUNK_BUDGET_MB"),
             "search": build_mod.resolve_chunk(
@@ -228,14 +247,28 @@ def main(argv=None) -> int:
         },
         "parity": bool(step_parity and e2e_parity),
         "prune_step": step_rows,
+        "prune_speedup_best": best,
         "build_levels": e2e,
+        "build_speedup": e2e_speedup,
         "build_agreement": agree,
     }
     if not payload["parity"]:
         print("ERROR: prune backends diverged", flush=True)
-    out = args.out or os.path.join(
-        common.artifacts_dir(), "BENCH_torch_build_smoke.json"
-        if args.smoke else "BENCH_torch_build.json")
+    committed = os.path.join(common.artifacts_dir(),
+                             "BENCH_torch_build.json")
+    if args.smoke:
+        out = args.out or os.path.join(common.artifacts_dir(),
+                                       "BENCH_torch_build_smoke.json")
+        if args.update_smoke_ref:
+            if common.update_smoke_ref(committed,
+                                       {"prune_speedup_best": best}):
+                print("updated smoke_ref in", committed)
+            else:
+                print("no committed record to update:", committed)
+    else:
+        out = args.out or committed
+        payload = common.carry_smoke_ref(payload, committed)
+    os.makedirs(os.path.dirname(os.path.abspath(out)), exist_ok=True)
     with open(out, "w") as f:
         json.dump(payload, f, indent=2)
     print("wrote", out)

@@ -403,14 +403,17 @@ def bench_search_sweep(device, widths=(1, 2, 4, 8), edge_impls=("argsort",),
     return rows
 
 
-def bench_storage_footprint(device, dataset="wit-like", n_queries=64):
+def bench_storage_footprint(device, dataset="wit-like", n_queries=64,
+                            seed=0):
     """The same graph in f32/int32 against bf16/int16, int8 and PQ
     (``astype_storage``: only the tables' codecs change), recall@10
-    against the f32 index's ground truth."""
+    against the f32 index's ground truth. ``seed``: the dataset's and
+    the build's (``common.build_index``); the queries stay the same
+    draw."""
     # the baseline pinned to f32 so an RTORCH_STORAGE leg still measures
     # the codecs against true f32/int32
     idx32 = common.build_index(dataset, storage=storage_mod.StorageConfig(),
-                               device=device)
+                               seed=seed, device=device)
     idxc = idx32.astype_storage(storage_mod.StorageConfig.compact())
     nb = storage_mod.table_nbytes
     wl = common.make_workload(idx32, "mixed", n_queries=n_queries)

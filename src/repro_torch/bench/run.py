@@ -14,12 +14,13 @@ script failed; the others still run.
 from __future__ import annotations
 
 import argparse
-import importlib
 import sys
 import time
 import traceback
 
-from repro_torch.bench import common
+from repro_torch.bench import (common, fig2_qps_recall, fig3_ablation,
+                               fig4_oracle, fig5_multiattr, scalability,
+                               table2_memory, table3_indexing)
 from repro_torch.device import resolve_device
 
 MODULES = {
@@ -31,6 +32,9 @@ MODULES = {
     "fig5": "fig5_multiattr",
     "scalability": "scalability",
 }
+_LOADED = {m.__name__.rsplit(".", 1)[1]: m for m in (
+    fig2_qps_recall, fig3_ablation, fig4_oracle, fig5_multiattr,
+    scalability, table2_memory, table3_indexing)}
 
 
 def main(argv=None) -> int:
@@ -58,7 +62,7 @@ def main(argv=None) -> int:
     failed = []
     print("table,col1,col2,col3,col4,col5,col6,col7,col8", flush=True)
     for name in names:
-        mod = importlib.import_module(f"repro_torch.bench.{MODULES[name]}")
+        mod = _LOADED[MODULES[name]]
         notes: dict = {}
         t0 = time.perf_counter()
         try:

@@ -30,17 +30,22 @@ flush ran, and its lateness is how long the flush thread held the
 reaper off). Capacity is a full-batch flush timed on the device
 (``bench/common.py::time_calls``: CUDA events on the card).
 
-``repro``'s ``--update-smoke-ref`` and the committed ``smoke_ref`` that
-``benchmarks/ci_gate.py`` checks wait for that gate's port (ROADMAP item
-11b); this module writes the record only.
+The committed record keeps a ``smoke_ref``, as ``repro``'s does: the
+nominal leg's ``p99_ms`` and the overload leg's ``shed_rate`` of a
+``--smoke`` run (``nominal.p99_ms``, ``overload.shed_rate``), which
+``bench/ci_gate.py::_check_slo`` compares a smoke run with.
+``--smoke --update-smoke-ref`` writes them into the committed record, and
+a full run carries the committed record's ``smoke_ref`` forward.
 
 Usage: ``python -m repro_torch.bench.serve_slo [--smoke] [--n N]
 [--device cpu] [--duration 4.0] [--max-batch 32] [--deadline 0.25]
-[--out-dir DIR]``. ``--n`` scales the dataset as ``bench/run.py`` does
-(``--n 1000000``: ytaudio-like at 500,000 x 64); ``--smoke`` runs 1 s legs
-at ``max_batch`` 16. The record goes to
-``artifacts/BENCH_torch_serve_slo.json`` (``..._smoke.json`` with
-``--smoke``), with the device and the ``nvidia-smi`` card line.
+[--out-dir DIR] [--update-smoke-ref]``. ``--n`` scales the dataset as
+``bench/run.py`` does (``--n 1000000``: ytaudio-like at 500,000 x 64);
+``--smoke`` runs 1 s legs at ``max_batch`` 16. The record goes to
+``--out-dir`` or ``artifacts/``, as ``BENCH_torch_serve_slo.json``
+(``..._smoke.json`` with ``--smoke``), with the device and the
+``nvidia-smi`` card line; the committed record is
+``artifacts/BENCH_torch_serve_slo.json``.
 """
 from __future__ import annotations
 
@@ -258,6 +263,10 @@ def main(argv=None):
                          "loop, not a measurement")
     ap.add_argument("--out-dir", default=None,
                     help="where the JSON record goes (default: artifacts/)")
+    ap.add_argument("--update-smoke-ref", action="store_true",
+                    help="with --smoke: record this run's nominal p99 and "
+                         "overload shed rate as the committed record's "
+                         "smoke_ref")
     args = ap.parse_args(argv)
     if args.smoke:
         args.duration = 1.0
@@ -318,6 +327,18 @@ def main(argv=None):
             "post_warmup_compiles": int(post_warmup),
         },
     }
+    committed = os.path.join(common.artifacts_dir(),
+                             "BENCH_torch_serve_slo.json")
+    if args.smoke and args.update_smoke_ref:
+        refs = {"nominal.p99_ms": legs["nominal"]["p99_ms"],
+                "overload.shed_rate": legs["overload"]["shed_rate"]}
+        refs = {k: v for k, v in refs.items() if v is not None}
+        if common.update_smoke_ref(committed, refs):
+            print("updated smoke_ref in", committed)
+        else:
+            print("no committed record to update:", committed)
+    elif not args.smoke:
+        payload = common.carry_smoke_ref(payload, committed)
     name = "BENCH_torch_serve_slo" + ("_smoke" if args.smoke else "")
     out_dir = args.out_dir or common.artifacts_dir()
     os.makedirs(out_dir, exist_ok=True)

@@ -417,3 +417,15 @@ RT_API int rt_pairwise_dist(const void* q, const void* x, void* out, int Bq,
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
+
+// The least dynamic shared memory a block of rt_pairwise_dist takes for
+// inputs of `dtype` (kSmem), exported for kernels/distance.py::smem_of;
+// -1 for a dtype it does not take.
+RT_API long long rt_pairwise_smem(int dtype) {
+  switch (dtype) {
+    case 0: return static_cast<long long>(tc::kSmem<float>);
+    case 1: return static_cast<long long>(tc::kSmem<__nv_bfloat16>);
+    case 2: return static_cast<long long>(tc::kSmem<__half>);
+    default: return -1;
+  }
+}

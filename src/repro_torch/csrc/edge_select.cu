@@ -30,9 +30,10 @@ namespace {
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
 
-// Dynamic shared memory of one CTA, computed here only: per warp a K-int
-// slice of edge ids, its m_out selected ids and the 32 scanned layers'
-// indices; the CTA's (u, L, R).
+// Dynamic shared memory of one CTA (kernels/edge_select.py::edge_smem
+// mirrors it for the budget check): per warp a K-int slice of edge ids,
+// its m_out selected ids and the 32 scanned layers' indices; the CTA's
+// (u, L, R).
 size_t edge_smem(int K, int m_out) {
   return (static_cast<size_t>(kWarps) * (K + m_out + 32) + 3 * kWarps) *
          sizeof(int);
@@ -125,4 +126,10 @@ RT_API int rt_edge_floor(const void* nbrs, const void* us, void* out, int F,
       static_cast<const int*>(nbrs), static_cast<const int*>(us),
       static_cast<int*>(out), F, n, K);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory one CTA of rt_edge_select takes at K edge ids
+// a frontier row, exported for kernels/edge_select.py::edge_smem.
+RT_API long long rt_edge_smem(int K, int m_out) {
+  return static_cast<long long>(edge_smem(K, m_out));
 }

@@ -246,6 +246,14 @@ int launch(const Params& p, int BH, int Sq, size_t smem, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// Dynamic shared memory of one block of the CUDA-core body
+// (kernels/flash_attention.py::cuda_cores_smem mirrors it): the query tile
+// and one K and one V tile, rows of Dh rounded up to 4 plus 4 floats.
+size_t cuda_cores_smem(int Dh) {
+  const int Dp = (Dh + 3) & ~3;
+  return static_cast<size_t>(kBQ + 2 * kBK) * (Dp + 4) * sizeof(float);
+}
+
 template <typename T>
 int dispatch(const Params& p, int BH, int Sq, size_t smem, cudaStream_t st) {
   if ((p.Dh + 3) / 4 <= 32) return launch<T, 1>(p, BH, Sq, smem, st);
@@ -269,9 +277,7 @@ RT_API int rt_flash_attention(const void* q, const void* k, const void* v,
   Params p{q,   k,   v,   o,   Hq,  Hq / Hkv, Sq,     Skv,
            Dh,  qsb, qsh, qss, ksb, ksh,      kss,    vsb,
            vsh, vss, scale, causal, window, has_softcap, softcap, q_offset};
-  const int Dp = (Dh + 3) & ~3;
-  const size_t smem = static_cast<size_t>(kBQ + 2 * kBK) * (Dp + 4) *
-                      sizeof(float);
+  const size_t smem = cuda_cores_smem(Dh);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (dtype) {
     case kF32: return dispatch<float>(p, B * Hq, Sq, smem, st);
@@ -668,4 +674,22 @@ RT_API int rt_flash_attention_tc(
   if (dtype == kBF16)
     return tc::dispatch<__nv_bfloat16>(qm, km, vm, p, DP, grid, st);
   return tc::dispatch<__half>(qm, km, vm, p, DP, grid, st);
+}
+
+// The dynamic shared memory of one block of each body, exported for the
+// wrapper's Python mirrors (kernels/flash_attention.py::cuda_cores_smem,
+// plan_tc): the CUDA-core body's at head dim Dh, the tensor-core body's
+// at DP (Dh rounded up to 64; -1 for a DP it has no instantiation of).
+RT_API long long rt_flash_smem(int Dh) {
+  return static_cast<long long>(cuda_cores_smem(Dh));
+}
+
+RT_API long long rt_flash_tc_smem(int DP) {
+  switch (DP) {
+    case 64: return static_cast<long long>(tc::smem_bytes<64>());
+    case 128: return static_cast<long long>(tc::smem_bytes<128>());
+    case 192: return static_cast<long long>(tc::smem_bytes<192>());
+    case 256: return static_cast<long long>(tc::smem_bytes<256>());
+    default: return -1;
+  }
 }

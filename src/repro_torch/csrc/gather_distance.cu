@@ -180,3 +180,10 @@ RT_API int rt_gather_dist(const void* q, const void* data, const void* aux,
 #undef RT_GATHER
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The dynamic shared memory one CTA of rt_gather_dist takes at (d, slots):
+// the bytes the launch asks for, exported so that the plan's Python mirror
+// (kernels/gather_distance.py::gather_smem) can be held to it.
+RT_API long long rt_gather_smem(int d, int slots) {
+  return static_cast<long long>(gather_smem(d, slots));
+}

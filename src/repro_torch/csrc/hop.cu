@@ -234,3 +234,9 @@ RT_API int rt_hop(const void* q, const void* data, const void* aux,
 #undef RT_HOP
   return static_cast<int>(cudaErrorInvalidValue);
 }
+
+// The dynamic shared memory one CTA of rt_hop takes, exported for the
+// plan's Python mirror (kernels/gather_distance.py::hop_smem).
+RT_API long long rt_hop_smem(int d, int W, int K, int m_out) {
+  return static_cast<long long>(hop_smem(d, W, K, m_out));
+}

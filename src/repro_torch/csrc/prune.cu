@@ -902,3 +902,14 @@ RT_API int rt_prune(const void* cand_ids, const void* cand_dists,
   }
 #undef RT_PRUNE
 }
+
+// The dynamic shared memory one CTA of rt_prune takes: the staged-rows
+// kernels' at `staged` rows, the table kernel's; exported for the plan's
+// Python mirrors (kernels/prune.py::smem_bytes, table_bytes).
+RT_API long long rt_prune_smem(int C, int d, int staged) {
+  return static_cast<long long>(smem_bytes(C, d, staged));
+}
+
+RT_API long long rt_prune_table_bytes(int C, int d) {
+  return static_cast<long long>(table_bytes(C, d));
+}

@@ -27,8 +27,8 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["pairwise_dist_cuda", "plain", "grid_of", "plan", "half_gate",
-           "Plan", "TILE", "DIST_RTOL"]
+__all__ = ["pairwise_dist_cuda", "plain", "grid_of", "plan", "smem_of",
+           "half_gate", "Plan", "TILE", "DIST_RTOL"]
 
 plain = _ref.pairwise_dist
 _METRICS = {"l2": 0, "ip": 1}
@@ -68,10 +68,17 @@ def plan(q: torch.Tensor, x: torch.Tensor) -> Plan:
     piece = 16 // q.element_size()
     vec = (D % piece == 0 and q.data_ptr() % 16 == 0
            and x.data_ptr() % 16 == 0)
-    body = _BODY[q.dtype]
-    stages = 3 if body == "tf32x3" else 2
-    smem = 1024 + stages * _STAGE_BYTES + (TILE[0] + TILE[1]) * 4
-    return Plan(body, grid_of(Bq, x.shape[0]), vec, smem)
+    return Plan(_BODY[q.dtype], grid_of(Bq, x.shape[0]), vec,
+                smem_of(q.dtype))
+
+
+def smem_of(dtype: torch.dtype) -> int:
+    """A block's dynamic shared memory for inputs of ``dtype``
+    (``csrc/distance.cu::tc::kSmem``): 1,024 bytes to align the ring, two
+    ring stages (f32: a third buffer, the split's small parts) and the
+    tile's row norms."""
+    stages = 3 if _BODY[dtype] == "tf32x3" else 2
+    return 1024 + stages * _STAGE_BYTES + (TILE[0] + TILE[1]) * 4
 
 
 def half_gate(got, q, x, *, metric="l2", plain=None) -> dict:

@@ -20,10 +20,18 @@ import torch
 from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
-__all__ = ["select_edges_cuda", "plain", "frontier_bounds"]
+__all__ = ["select_edges_cuda", "plain", "frontier_bounds", "edge_smem"]
 
 plain = _ref.select_edges
 MAX_LOGN = 30  # layers <= 31 fit one ballot; 1 << logn fits int32
+WARPS = 8      # warps a CTA, one frontier row each (edge_select.cu kWarps)
+
+
+def edge_smem(K: int, m_out: int) -> int:
+    """Dynamic shared memory of one CTA (``csrc/edge_select.cu::
+    edge_smem``): per warp its row's K edge ids, its m_out selected ids
+    and the 32 scanned layers' indices; the CTA's (u, L, R)."""
+    return (WARPS * (K + m_out + 32) + 3 * WARPS) * 4
 
 
 @functools.cache

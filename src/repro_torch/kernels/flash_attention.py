@@ -33,15 +33,31 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["flash_attention_cuda", "plain", "MAX_HEAD_DIM", "BODIES",
-           "body_of", "plan_tc", "TcPlan"]
+           "body_of", "plan_tc", "TcPlan", "tc_smem", "cuda_cores_smem"]
 
 plain = _ref.attention
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BQ = 32           # query rows per block (csrc/flash_attention.cu kBQ)
+_BK = 32           # keys per tile of the CUDA-core body (kBK)
 BODIES = ("wgmma", "cuda_cores")
 _TC_ROWS = 64      # query rows per tensor-core tile (one warpgroup)
 _TC_BK = 32        # keys per K/V tile (csrc/flash_attention.cu tc::kKeys)
+
+
+def cuda_cores_smem(Dh: int) -> int:
+    """Dynamic shared memory of one block of the CUDA-core body
+    (``csrc/flash_attention.cu::cuda_cores_smem``): the query tile and one
+    K and one V tile in f32, rows of Dh rounded up to 4 plus 4 floats."""
+    return (_BQ + 2 * _BK) * ((Dh + 3) // 4 * 4 + 4) * 4
+
+
+def tc_smem(DP: int) -> int:
+    """Dynamic shared memory of one block of the tensor-core body at DP
+    (``csrc/flash_attention.cu::tc::smem_bytes``): 1 KB for alignment, Q
+    and two K/V stages in 64-column chunks of 128-byte rows, three
+    barriers."""
+    return 1024 + (DP // 64) * 128 * (64 + 4 * _TC_BK) + 64
 
 
 def body_of(dtype: torch.dtype, Dh: int) -> str:
@@ -82,8 +98,7 @@ def plan_tc(B, Hq, Hkv, Sq, Skv, Dh) -> TcPlan:
     else:
         P, RQ = 1, _TC_ROWS
     grid = (B * Hkv * -(-g // P), -(-Sq // RQ))
-    smem = 1024 + (DP // 64) * 128 * (64 + 4 * BK) + 64
-    return TcPlan(DP, BK, P, RQ, grid, smem)
+    return TcPlan(DP, BK, P, RQ, grid, tc_smem(DP))
 
 
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
