@@ -140,9 +140,17 @@ the full-size run, one card). It
      within 0.01 of the sync engine's recall or added a cache entry, or if a subsample row's cosine to the plain
      attention's is below 0.9999 or an element differs by more than 0.05;
      profiles one embed call;
+  10a. embeds 4,096 items (LM_F32_ITEMS) with the same model and params
+     computing in f32 (``lm_embed_f32``: every count at 0 before it,
+     TF32 off for torch's matmuls and cuDNN, printed), then all-plain;
+     prints embed s and tokens/s of both beside the bf16 leg's; fails
+     unless all 28 x 16 flash launches went to the 3xTF32 body, the
+     plain run launched none, the embeddings are finite and every row's
+     cosine to the plain run's is >= 0.99999 (``lm embed f32[...]``);
   11. holds the flash-attention kernel against its plain version at the
      path's shape (bf16, f16 and f32), at S = 4,096 and over a variant grid
-     (window, softcap, bidirectional, q_offset; q, k and v in the
+     (window, softcap, bidirectional, q_offset, head dims 100 and 66 in
+     f32 and 72 in bf16; q, k and v in the
      projections' transposed layout) and at the lm decode phase's prefill
      shapes (gemma2-9b's local and global layers, B 4, S 4,608, Dh 256,
      softcap 50; granite-20b's MQA, g = 48; seamless's cross-attention
@@ -152,8 +160,10 @@ the full-size run, one card). It
      encoder and causal decoder) (f32 within 1e-5, bf16 and f16 within
      one bf16 ulp and the f32 tolerance, see ``bf16_tol``), and fails a
      shape whose launch went to another body than its dtype and head dim
-     name (16-bit: the tensor-core body; f32: the CUDA-core one), with
-     SDPA's time beside it where SDPA computes the same function; the prune kernel at d = 1,024 and C = 144 on one build
+     name (16-bit at Dh % 16 == 0: the tensor-core body; f32 at Dh % 4 ==
+     0: the 3xTF32 one; the rest: the CUDA-core one) and fails unless
+     the grid launched every body, with SDPA's time beside it where SDPA
+     computes the same function; the prune kernel at d = 1,024 and C = 144 on one build
      chunk's own candidates (``prune_check_wide``), each prune record
      with its regime (staged rows, shared memory and warps a CTA);
      one search level of the lm build under torch.profiler
@@ -363,9 +373,14 @@ ROOF_MAX_FRACTION = 1.05
 ROOF_KERNEL = {"edge_select": "select_edges"}
 DIST_TAG = {"float32": "f32", "bfloat16": "bf16", "float16": "f16"}
 FLASH_F32_TOL = 1e-5      # flash vs plain in f32: sums in other orders
-PEAK_FLOPS = {"torch.float32": PEAK_F32_FLOPS,
-              "torch.bfloat16": PEAK_BF16_FLOPS,
-              "torch.float16": PEAK_BF16_FLOPS}
+# full f32 precision on the tensor cores takes three tf32 products
+# (3xTF32, as pairwise_dist's f32 body): an f32 flash shape's operations
+# bound is 3x its work at the TF32 peak
+F32_TF32_PASSES = 3
+# the f32 embed leg: qwen3-0.6b at full width and depth computing in f32,
+# LM_F32_ITEMS items through the kernel and all-plain; least row cosine
+LM_F32_ITEMS = 4096
+LM_F32_MIN_COSINE = 0.99999
 # flash attention: the path's shape, one long shape and the variant grid
 # (B, Hq, Hkv, Sq, Skv, Dh, dtype name, keyword arguments)
 FLASH_SHAPES = {
@@ -383,6 +398,11 @@ FLASH_SHAPES = {
                           {"causal": False}),
     "q_offset": (4, 16, 8, 100, 256, 128, "bfloat16", {"q_offset": 156}),
     "q_offset f32": (4, 16, 8, 100, 256, 128, "float32", {"q_offset": 156}),
+    # a head dim the bodies zero-fill (f32 Dh 100 -> 128 columns) or leave
+    # to the CUDA cores (bf16 Dh 72, f32 Dh 66)
+    "Dh 100 f32": (4, 16, 8, 256, 256, 100, "float32", {}),
+    "Dh 72": (4, 16, 8, 256, 256, 72, "bfloat16", {}),
+    "Dh 66 f32": (4, 16, 8, 256, 256, 66, "float32", {}),
     # the lm decode phase's prefill shapes: gemma2-9b's local and global
     # layers, granite-20b's MQA (g = 48), seamless's cross-attention over
     # the contiguous K/V that models/attention.py::cross_kv makes
@@ -425,6 +445,24 @@ def time_ms(torch, fn, iters=20, warmup=3):
 
     return time_calls(fn, torch.device("cuda", 0), iters=iters,
                       warmup=warmup) * 1e3
+
+
+def ahead_ms(torch, fn, iters=20) -> float:
+    """Mean ms per call of ``fn(i)`` over ``iters`` back-to-back calls
+    recorded behind a sleep kernel, so that the host is ahead of the card
+    and the figure is the card's, not the caller's: where a call's host
+    time exceeds its kernel's, ``time_ms`` measures the host."""
+    for i in range(3):
+        fn(i)
+    torch.cuda.synchronize()
+    a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    torch.cuda._sleep(int(SLEEP_CYCLES))
+    a.record()
+    for i in range(iters):
+        fn(i)
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / iters
 
 
 def dev_us(e) -> float:
@@ -1148,11 +1186,15 @@ def attention_pairs(Sq, Skv, causal, window, q_offset) -> int:
 
 def flash_checks(torch) -> dict:
     """The flash-attention kernel against its plain version on the card at
-    the embed path's shape, one long shape and the variant grid: f32
-    within 1e-5, bf16 within ``bf16_tol``; ms, plain ms, the bound (bytes
-    at 3.35 TB/s or flops at the input type's peak) and, where SDPA
-    computes the same function (causal or not, no window, softcap or
-    offset), its ms as library_ms."""
+    the embed path's shape, one long shape and the variant grid, each
+    shape on the body ``body_of`` names for it (every body is launched):
+    f32 within 1e-5, bf16 within ``bf16_tol``; ms, plain ms, the bound
+    (bytes at 3.35 TB/s or flops at the 16-bit tensor-core peak; in f32
+    three times the flops at the TF32 peak, the least full f32 precision
+    takes) and, where SDPA computes the same function (causal or not, no
+    window, softcap or offset), its ms as library_ms; beside each ms, the
+    same calls with the host ahead of the card (``ahead_ms``) and the
+    kernel's device ms with L2 cold."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ops, ref
@@ -1199,22 +1241,39 @@ def flash_checks(torch) -> dict:
         iters = 5 if S >= 4096 else 20
         kms = time_ms(torch, lambda i: flash_attention_cuda(q, k, v, **kw),
                       iters=iters)
+        # the kernel alone (the events figure includes the wrapper's host
+        # time where a launch takes less): device ms with L2 cold, and
+        # back-to-back calls with the host ahead, as SDPA's beside it
+        dms, _ = device_ms(torch, lambda i: flash_attention_cuda(q, k, v,
+                                                                 **kw),
+                           "flash", iters=6 if S >= 4096 else 12)
+        kahead = ahead_ms(torch, lambda i: flash_attention_cuda(q, k, v,
+                                                                **kw),
+                          iters=iters)
         pms = time_ms(torch, lambda i: ref.attention(q, k, v, **kw),
                       iters=3 if S >= 4096 else 10)
-        lms = None
+        lms = lahead = None
         if not ({"window", "softcap"} & set(kw)) and not kw.get("q_offset"):
-            lms = time_ms(torch, lambda i: F.scaled_dot_product_attention(
-                q, k, v, is_causal=kw.get("causal", True), enable_gqa=True),
-                iters=iters)
+            def sdpa(i):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=kw.get("causal", True),
+                    enable_gqa=True)
+            lms = time_ms(torch, sdpa, iters=iters)
+            lahead = ahead_ms(torch, sdpa, iters=iters)
         pairs = attention_pairs(Sq, S, kw.get("causal", True),
                                 kw.get("window"), kw.get("q_offset", 0))
         esz = got.element_size()
         nbytes = (2 * B * Hq * Sq * Dh + 2 * B * Hkv * S * Dh) * esz
         flops = 4.0 * B * Hq * pairs * Dh
-        bms, by = bound_ms(nbytes, flops, PEAK_FLOPS[str(dtype)])
+        if dtype == torch.float32:
+            bms, by = bound_ms(nbytes, F32_TF32_PASSES * flops,
+                               PEAK_TF32_FLOPS)
+        else:
+            bms, by = bound_ms(nbytes, flops, PEAK_BF16_FLOPS)
         rec = dict(ok=good, max_abs_err=float(err.max()), ms=kms,
-                   plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=lms,
-                   body=body,
+                   device_ms=dms, ahead_ms=kahead, plain_ms=pms,
+                   bound_ms=bms, bound_by=by, library_ms=lms,
+                   library_ahead_ms=lahead, body=body,
                    shape=f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={S} Dh={Dh} "
                          f"{dt}"
                          + (f" {json.dumps(kw)}" if kw else " causal")
@@ -1222,8 +1281,10 @@ def flash_checks(torch) -> dict:
                             else ""))
         out[name] = rec
         print(f"kernel flash_attention[{name}] [{rec['shape']}] ({body} "
-              f"body): {kms:.4f} ms, plain {pms:.4f} ms, SDPA "
-              + ("n/a" if lms is None else f"{lms:.4f} ms")
+              f"body): {kms:.4f} ms (device {dms:.4f}, L2 cold; host "
+              f"ahead {kahead:.4f}), plain {pms:.4f} ms, SDPA "
+              + ("n/a" if lms is None else
+                 f"{lms:.4f} ms (host ahead {lahead:.4f})")
               + f", bound {bms:.4f} ms ({by}), max_abs_err "
               f"{rec['max_abs_err']:.3g}" + ("" if good else "  DISAGREES"),
               flush=True)
@@ -1704,6 +1765,85 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
     out["queries"] = (qv, L, R)
     out["model"] = (model, params)
     return out, ok
+
+
+def lm_embed_f32(torch, cfg, params, bf16_tokens_per_s) -> tuple[dict,
+                                                                   bool]:
+    """The lm serve leg's model (its seeded f32 params, every layer) with
+    ``compute_dtype="float32"``: after one warm-up call,
+    ``launch/serve.py::embed_corpus`` over LM_F32_ITEMS items of LM_SEQ
+    tokens, LM_BATCH a call, every count at 0 just before it and read
+    just after; then, warmed up alike, the same items with
+    attention on plain torch. TF32 is off for torch's matmuls and cuDNN
+    during the leg (set, printed, restored after). Gates: every flash
+    launch on the 3xTF32 body, n_layers a call; none on the plain run;
+    finite embeddings of the expected shape; least row cosine to the
+    plain run >= LM_F32_MIN_COSINE."""
+    import dataclasses
+
+    from repro_torch.kernels import ops
+    from repro_torch.launch.serve import embed_corpus
+    from repro_torch.models.api import Model
+
+    flags = (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    f32 = dataclasses.replace(cfg, compute_dtype="float32")
+    out = {"items": LM_F32_ITEMS, "seq": LM_SEQ, "embed_batch": LM_BATCH,
+           "matmul_allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+           "cudnn_allow_tf32": torch.backends.cudnn.allow_tf32}
+    try:
+        runs = {}
+        for name, c in (("kernel", f32),
+                        ("plain", dataclasses.replace(
+                            f32, attention_impl="torch"))):
+            model = Model(c)
+            # one warm-up call (the f32 products' first-call costs), outside
+            # the counted and timed run
+            model.embed(params, np.random.default_rng(3).integers(
+                0, c.vocab, (LM_BATCH, LM_SEQ)).astype(np.int32))
+            torch.cuda.synchronize()
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            vec = embed_corpus(model, params, LM_F32_ITEMS, LM_SEQ, c.vocab,
+                               seed=0, batch=LM_BATCH)
+            sec = time.perf_counter() - t0
+            runs[name] = (vec, sec, ops.launch_counts()["flash_attention"],
+                          {k: n for k, n in ops.body_counts().items()
+                           if k.startswith("flash_attention")})
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+    (vec, sec, launches, bodies), (pvec, psec, plaunches, _) = \
+        runs["kernel"], runs["plain"]
+    a, b = vec.astype(np.float64), pvec.astype(np.float64)
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1)
+                            * np.linalg.norm(b, axis=1))
+    tokens = LM_F32_ITEMS * LM_SEQ
+    want = cfg.n_layers * -(-LM_F32_ITEMS // LM_BATCH)
+    out.update({
+        "embed_s": round(sec, 3), "embed_tokens_per_s": round(tokens / sec, 1),
+        "plain_embed_s": round(psec, 3),
+        "plain_embed_tokens_per_s": round(tokens / psec, 1),
+        "bf16_lm_serve_embed_tokens_per_s": bf16_tokens_per_s,
+        "flash_launches": launches, "flash_bodies": bodies,
+        "plain_flash_launches": plaunches,
+        "min_row_cosine": float(cos.min()),
+        "max_abs_diff": float(np.abs(a - b).max())})
+    gates = {
+        f"{want} flash launches ({cfg.n_layers} layers x "
+        f"{-(-LM_F32_ITEMS // LM_BATCH)} calls), all tf32x3":
+            launches == want and bodies["flash_attention[tf32x3]"] == want,
+        "none on the plain run": plaunches == 0,
+        "finite, of shape (items, d_model)":
+            bool(np.isfinite(vec).all())
+            and vec.shape == (LM_F32_ITEMS, cfg.d_model),
+        f"least row cosine >= {LM_F32_MIN_COSINE}":
+            out["min_row_cosine"] >= LM_F32_MIN_COSINE,
+    }
+    out["gates"] = gates
+    return out, all(gates.values())
 
 
 def lm_async(torch, index, engine, qv, los, his, sync_ids, gt,
@@ -4210,10 +4350,26 @@ def run(args):
     model.embed(params, toks)
     profile_search(torch, lambda: model.embed(params, toks),
                    f"embed batch of {LM_BATCH}")
+    # -- the same model computing in f32: the flash kernel's 3xTF32 body --
+    t_phase = time.perf_counter()
+    emb32, good = lm_embed_f32(torch, model.cfg, params,
+                               lm["embed_tokens_per_s"])
+    print(f"lm embed f32[{LM_ARCH}, {model.cfg.n_layers} layers, params f32,"
+          f" compute float32, {LM_F32_ITEMS} items x {LM_SEQ} tokens, "
+          f"{LM_BATCH} a call]: {json.dumps(emb32)} in "
+          f"{time.perf_counter() - t_phase:.1f} s"
+          + ("" if good else "  FAILED"), flush=True)
+    ok &= good
     del model, params
     flash = flash_checks(torch)
     for rec in flash.values():
         ok &= rec["ok"]
+    from repro_torch.kernels.flash_attention import BODIES
+    unlaunched = set(BODIES) - {rec["body"] for rec in flash.values()}
+    if unlaunched:
+        print(f"flash_attention: bodies no grid shape launched: "
+              f"{sorted(unlaunched)}", flush=True)
+        ok = False
     wide = prune_check_wide(torch, lm_index, 2 * LM_EF)
     ok &= wide["f32"]["ok"]
     profile_build_level(torch, lm_index, 2 * LM_EF, LM_BUILD_CHUNK,
@@ -4261,6 +4417,12 @@ def run(args):
         "max_abs_err_f32": flash["path f32"]["max_abs_err"],
         "max_abs_err_f16": flash["path f16"]["max_abs_err"],
         "lm_path_bodies": lm["flash_bodies"],
+        "lm_embed_f32_launches": emb32["flash_launches"],
+        "lm_embed_f32_bodies": emb32["flash_bodies"],
+        "at_path_f32": {k: flash["path f32"][k] for k in
+                        ("ms", "device_ms", "ahead_ms", "plain_ms",
+                         "bound_ms", "bound_by", "library_ms",
+                         "library_ahead_ms", "max_abs_err", "body")},
         "at_S4096": {k: flash["long"][k] for k in
                      ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "max_abs_err")}})

@@ -5,9 +5,9 @@ hop kernels and edge_select of one source tree at the paths' shapes.
 ``python3 prune_time.py <src dir> [parts]`` imports ``repro_torch`` from
 ``<src dir>`` (a checkout's ``src``), builds its kernels, and times them
 on the card; ``parts`` is a comma-separated subset of ``prune,
-prune_designs,flash,pairwise,pairwise_exact,gather,hop,edge,search,
-codecs`` (default: all but prune_designs, gather, hop, edge, search and
-codecs).
+prune_designs,flash,flash_f32,pairwise,pairwise_exact,gather,hop,edge,
+search,codecs`` (default: all but prune_designs, flash_f32, gather, hop,
+edge, search and codecs).
 
   * prune: n = 1,000,000 random f32 rows of d = 128, B = 16,384 nodes, C =
     80 candidates drawn from a 4,096-row segment (a search level) and C =
@@ -31,6 +31,14 @@ codecs).
     ([B, S, H, Dh] viewed as [B, H, S, Dh]): the embed path's B = 256, S =
     32, and B = 1, S = 4,096. Reports the largest |difference| from the
     plain version.
+  * flash_f32: every shape of ``chip_smoke.py::FLASH_SHAPES`` that is f32
+    or that a 16-bit body leaves to the CUDA cores (Dh % 16 != 0), drawn
+    as the smoke draws them: the body that ran, ms by CUDA events over 20
+    back-to-back calls (the smoke's figure) and the same with the host
+    ahead of the card (``chip_smoke.py::ahead_ms``), device ms per launch
+    from torch.profiler with L2 cold (``chip_smoke.py::device_ms``), the
+    wrapper's host µs per call, SDPA's ms both ways where it computes the
+    same function, and the largest |difference| from the plain version.
   * pairwise: l2 at the roofline's shape (Bq = 64, N = 100,000, d = 128,
     f32) and at 1,000 x 1,000,000 (d = 128) in f32, bf16 and f16, with
     the library call beside each (``chip_smoke.py::pairwise_library``:
@@ -92,8 +100,8 @@ import torch  # noqa: E402
 
 from repro_torch.kernels import _build, ref  # noqa: E402
 
-PARTS = ("prune", "prune_designs", "flash", "pairwise", "pairwise_exact",
-         "gather", "hop", "edge", "search", "codecs")
+PARTS = ("prune", "prune_designs", "flash", "flash_f32", "pairwise",
+         "pairwise_exact", "gather", "hop", "edge", "search", "codecs")
 CODEC_SEEDS = (0, 1, 2, 3, 4)
 LAYOUT_F32 = ("f32",)
 LAYOUTS_ALL = ("f32", "bf16", "f16", "int8", "pq")
@@ -548,6 +556,44 @@ def flash_part(out, dev, g):
                                     iters=5 if S >= 4096 else 20)
         out[f"{name}_max_abs_err"] = float(err)
         del q, k, v
+
+
+def flash_f32_part(out, dev, g):
+    import torch.nn.functional as F
+
+    import chip_smoke as smoke
+    from repro_torch.kernels.flash_attention import flash_attention_cuda
+
+    for name, (B, Hq, Hkv, Sq, S, Dh, dt, kw) in smoke.FLASH_SHAPES.items():
+        dtype = getattr(torch, dt)
+        if dtype != torch.float32 and Dh % 16 == 0:
+            continue
+        q = torch.randn((B, Sq, Hq, Dh), generator=g, device=dev,
+                        dtype=dtype).transpose(1, 2)
+        k, v = (torch.randn((B, S, Hkv, Dh), generator=g, device=dev,
+                            dtype=dtype).transpose(1, 2) for _ in range(2))
+        before = dict(flash_attention_cuda.body_launches)
+
+        def call(i=0):
+            return flash_attention_cuda(q, k, v, **kw)
+
+        err = (call().float() - ref.attention(q, k, v, **kw).float()).abs()
+        rec = {"body": [b for b, c in flash_attention_cuda.body_launches
+                        .items() if c > before.get(b, 0)][0],
+               "max_abs_err": float(err.max()),
+               "ms": time_ms(call),
+               "ahead_ms": smoke.ahead_ms(torch, call),
+               "device_ms": smoke.device_ms(torch, call, "flash")[0],
+               "host_us": smoke.host_us(torch, call)}
+        if not ({"window", "softcap"} & set(kw)) and not kw.get("q_offset"):
+            def sdpa(i=0):
+                return F.scaled_dot_product_attention(
+                    q, k, v, is_causal=kw.get("causal", True),
+                    enable_gqa=True)
+            rec["sdpa_ms"] = time_ms(sdpa)
+            rec["sdpa_ahead_ms"] = smoke.ahead_ms(torch, sdpa)
+        out[f"flash[{name}]"] = rec
+        del q, k, v, err
 
 
 def pairwise_part(out, dev, g):

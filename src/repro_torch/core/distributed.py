@@ -94,14 +94,17 @@ class ShardedRangeIndex:
                    (self.vectors, self.neighbors, self.bounds))
 
     @classmethod
-    def from_numpy(cls, fields, device="cpu") -> "ShardedRangeIndex":
+    def from_numpy(cls, fields, *, device=None) -> "ShardedRangeIndex":
         """Carry ``repro``'s ``ShardedRangeIndex`` across: ``fields`` is a
         mapping, or any object, with its ``vectors``, ``neighbors``,
         ``bounds``, ``logn``, ``m`` and optional ``storage`` (a mapping or
         an object with ``StorageConfig``'s fields) as numpy. A bf16 table
         may come as ``ml_dtypes.bfloat16`` or as its ``uint16`` bits (no
         vector table of another dtype is stored as ``uint16``); no
-        ``jax`` or ``ml_dtypes`` is needed."""
+        ``jax`` or ``ml_dtypes`` is needed. The stacked tables go on
+        ``device``, the card unless ``device="cpu"``, as
+        :func:`build_sharded` places them."""
+        device = resolve_device(device)
         if isinstance(fields, Mapping):
             get = fields.get
         else:

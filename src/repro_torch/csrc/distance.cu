@@ -75,12 +75,6 @@ constexpr size_t kSmem = 1024 + kNorms<T> + (kBM + kBN) * sizeof(float);
 constexpr int kOutPad = kBN + 8;
 static_assert(4 * 8 * kOutPad * 4 <= kStage, "staged epilogue fits a stage");
 
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t u;
-  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(u) : "f"(x));
-  return u;
-}
-
 // piece c (16 bytes: 16 / sizeof(T) values from k) of source row `grow`
 // into row `row` of a ring stage's tile, zeros outside [0, nrows) x [0,
 // D): a cp.async (VEC: 16-byte rows and pointers) or element loads
@@ -116,7 +110,7 @@ __device__ __forceinline__ float split_piece(uint8_t* big, uint8_t* small,
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     sq = fmaf(a[i], a[i], sq);
-    bw[i] = tf32_rna(a[i]);
+    bw[i] = sm90::tf32_rna(a[i]);
     rw[i] = __float_as_uint(a[i] - __uint_as_float(bw[i]));
   }
   *reinterpret_cast<uint4*>(big + off) = make_uint4(bw[0], bw[1], bw[2],

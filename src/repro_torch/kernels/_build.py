@@ -109,15 +109,28 @@ _TYPES = {"f": "f32", "13__nv_bfloat16": "bf16", "6__half": "f16"}
 
 
 def _kernel_name(mangled: str) -> str:
-    """``flash_tc_kernel<bf16,128,32>`` from an Itanium-mangled kernel
-    name (types, ``Li..E`` ints and ``Lb..E`` bools of its template)."""
-    m = re.search(r"(\d+)([a-z_]+kernel)I(.*?)EE?v", mangled)
+    """``flash_tc_kernel<bf16,128>`` from an Itanium-mangled kernel name:
+    the first name ending in ``kernel`` of its (possibly nested) name,
+    then the types, ``Li..E`` ints and ``Lb..E`` bools of its template."""
+    m = re.match(r"_ZN?", mangled)
     if not m:
         return mangled
+    i = m.end()
+    while True:
+        d = re.match(r"\d+", mangled[i:])
+        if not d:
+            return mangled
+        i += d.end()
+        name = mangled[i:i + int(d.group())]
+        i += len(name)
+        if name.endswith("kernel"):
+            break
+    t = re.match(r"I(.*?E)E", mangled[i:])
+    if not t:
+        return name
     args = re.findall(r"L[ib](\d+)E|(13__nv_bfloat16|6__half|f)(?=L|E|$)",
-                      m.group(3))
-    parts = [n or _TYPES[t] for n, t in args]
-    return f"{m.group(2)}<{','.join(parts)}>"
+                      t.group(1))
+    return f"{name}<{','.join(n or _TYPES[ty] for n, ty in args)}>"
 
 
 def ptxas_summary(name: str) -> list[dict]:

@@ -39,6 +39,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.device import resolve_device
 from repro_torch.kernels import gather_distance as _gather
 from repro_torch.kernels import prune as _prune
 
@@ -227,8 +228,9 @@ def autotune(kind: str, run, *, iters: int = 20, candidates=None,
     ``reset(i)``, where given, runs before every call outside what is
     timed (an input updated in place, a cache flush). Times are the mean
     device ms of ``iters`` calls after one warm-up
-    (``bench/common.py::time_calls``; the host clock on the CPU). The
-    record is JSON-ready::
+    (``bench/common.py::time_calls``; the host clock on the CPU, which
+    only ``device="cpu"`` asks for: with no card and no device it
+    raises). The record is JSON-ready::
 
         {"kind", "best", "best_ms", "candidates": [{"params", "ms"}],
          "default", "default_ms", "refused", "tunable"}
@@ -241,8 +243,7 @@ def autotune(kind: str, run, *, iters: int = 20, candidates=None,
     candidates = [dict(c) for c in candidates]
     if not candidates:
         raise ValueError(f"autotune: no {kind} candidate")
-    if device is None:
-        device = torch.device("cuda" if torch.cuda.is_available() else "cpu")
+    device = resolve_device(device)
     same = same or _identical
 
     def call(params):

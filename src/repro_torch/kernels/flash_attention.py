@@ -3,17 +3,22 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
 (line 34). The kernel is ``csrc/flash_attention.cu``; its header says what
 bounds it on the H100 (memory at the embed path's S = 32, operations at
-long S) and what its two bodies do about that. Which body runs depends on
-the dtype and the head dim alone (:func:`body_of`):
+long S) and what its three bodies do about that. Which body runs depends
+on the dtype and the head dim alone (:func:`body_of`):
 
   * ``"wgmma"``: bf16 / f16 with ``Dh % 16 == 0`` -- the tensor-core body
     (64-row query tiles, TMA into a two-stage K/V ring, wgmma with P split
-    into hi and lo halves). Its tiling is :func:`plan_tc`, pure Python;
-    its tensor maps need every stride of q, k and v that spans more than
-    one element to be a multiple of 16 bytes, and 16-byte aligned
-    pointers, or the wrapper raises;
-  * ``"cuda_cores"``: f32, and 16-bit inputs with another head dim -- f32
-    FMAs on 32-row query tiles.
+    into hi and lo halves);
+  * ``"tf32x3"``: f32 with ``Dh % 4 == 0`` -- the same tiling in f32, each
+    product as three tf32 wgmmas on the big and small halves of its
+    operands (full f32 precision);
+  * ``"cuda_cores"``: 16-bit inputs with another head dim, and f32 with
+    ``Dh % 4 != 0`` -- f32 FMAs on 32-row query tiles.
+
+The two TMA bodies' tiling is :func:`plan_tc`, pure Python; their tensor
+maps need every stride of q, k and v that spans more than one element to
+be a multiple of 16 bytes, and 16-byte aligned pointers, or the wrapper
+raises rather than take another body.
 
 ``flash_attention_cuda.launches`` counts every launch and
 ``flash_attention_cuda.body_launches`` each body's. The plain version is
@@ -33,14 +38,15 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["flash_attention_cuda", "plain", "MAX_HEAD_DIM", "BODIES",
-           "body_of", "plan_tc", "TcPlan", "tc_smem", "cuda_cores_smem"]
+           "body_of", "plan_tc", "TcPlan", "tc_smem", "tf32x3_smem",
+           "cuda_cores_smem"]
 
 plain = _ref.attention
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _BQ = 32           # query rows per block (csrc/flash_attention.cu kBQ)
 _BK = 32           # keys per tile of the CUDA-core body (kBK)
-BODIES = ("wgmma", "cuda_cores")
+BODIES = ("wgmma", "tf32x3", "cuda_cores")
 _TC_ROWS = 64      # query rows per tensor-core tile (one warpgroup)
 _TC_BK = 32        # keys per K/V tile (csrc/flash_attention.cu tc::kKeys)
 
@@ -60,17 +66,29 @@ def tc_smem(DP: int) -> int:
     return 1024 + (DP // 64) * 128 * (64 + 4 * _TC_BK) + 64
 
 
+def tf32x3_smem(DP: int) -> int:
+    """Dynamic shared memory of one block of the 3xTF32 body at DP
+    (``csrc/flash_attention.cu::x3::tf32x3_smem``): Q and its small half
+    (64 rows), the K and V tiles and the scratch tile X (32 keys), all f32
+    at DP columns; three barriers in 64 bytes; 896 bytes of headroom to
+    align a 128-byte-aligned base to 1,024 bytes."""
+    return (2 * _TC_ROWS + 3 * _TC_BK) * DP * 4 + 64 + 896
+
+
 def body_of(dtype: torch.dtype, Dh: int) -> str:
     """The body that runs for inputs of ``dtype`` and head dim ``Dh``."""
     if dtype in (torch.bfloat16, torch.float16) and Dh % 16 == 0:
         return "wgmma"
+    if dtype == torch.float32 and Dh % 4 == 0:
+        return "tf32x3"
     return "cuda_cores"
 
 
 @dataclasses.dataclass(frozen=True)
 class TcPlan:
-    """The tensor-core body's tiling (``csrc/flash_attention.cu`` tc)."""
-    DP: int          # Dh rounded up to 64: 64-column chunks of Q, K and V
+    """The tiling of the two TMA bodies (``csrc/flash_attention.cu`` tc
+    and x3)."""
+    DP: int          # Dh rounded up to 64, the tensor maps zero-filling
     BK: int          # keys per K/V tile (32)
     P: int           # query heads packed in one 64-row tile
     RQ: int          # positions per head in one tile (P * RQ <= 64)
@@ -78,18 +96,25 @@ class TcPlan:
     smem_bytes: int  # dynamic shared memory of one block
 
 
-def plan_tc(B, Hq, Hkv, Sq, Skv, Dh) -> TcPlan:
-    """Tiling of the tensor-core body. At Sq <= 32 the 64 rows hold the
-    Sq positions of P = min(g, 64 // Sq) query heads of one GQA group, so
-    the group's K/V tile is read once (g = 2, S = 32 fills the tile);
-    else 64 positions of one head. Key tiles of 32: a block then needs
-    at most 96 KB of shared memory (Dh 256) and 48 KB at Dh 128, so four
-    blocks share an SM, and one block's softmax runs under another's
-    wgmmas (64-key tiles, two blocks an SM, took 0.47 ms at S = 4,096
-    where 32-key tiles took 0.36 on the H100)."""
-    if Dh % 16 or not 16 <= Dh <= MAX_HEAD_DIM:
-        raise ValueError(f"tensor-core body: head dim {Dh} is not a "
-                         f"multiple of 16 in [16, {MAX_HEAD_DIM}]")
+@functools.lru_cache(maxsize=1024)   # a call's host time: plans repeat
+def plan_tc(B, Hq, Hkv, Sq, Skv, Dh, dtype=torch.bfloat16) -> TcPlan:
+    """Tiling of the tensor-core body (bf16 / f16 ``dtype``) or of the
+    3xTF32 body (f32: the same tiles, its own shared memory,
+    :func:`tf32x3_smem`, and head dims that are multiples of 4, not 16).
+    At Sq <= 32 the 64 rows hold the Sq positions of P = min(g, 64 // Sq)
+    query heads of one GQA group, so the group's K/V tile is read once (g
+    = 2, S = 32 fills the tile); else 64 positions of one head. Key tiles
+    of 32: a 16-bit block then needs at most 96 KB of shared memory (Dh
+    256) and 48 KB at Dh 128, so four blocks share an SM, and one block's
+    softmax runs under another's wgmmas (64-key tiles, two blocks an SM,
+    took 0.47 ms at S = 4,096 where 32-key tiles took 0.36 on the H100);
+    an f32 block 115,648 B at Dh 128, two an SM."""
+    f32 = dtype == torch.float32
+    step = 4 if f32 else 16
+    if Dh % step or not step <= Dh <= MAX_HEAD_DIM:
+        raise ValueError(f"{'3xTF32' if f32 else 'tensor-core'} body: head "
+                         f"dim {Dh} is not a multiple of {step} in [{step}, "
+                         f"{MAX_HEAD_DIM}]")
     g = Hq // Hkv
     DP = -(-Dh // 64) * 64
     BK = _TC_BK
@@ -98,7 +123,8 @@ def plan_tc(B, Hq, Hkv, Sq, Skv, Dh) -> TcPlan:
     else:
         P, RQ = 1, _TC_ROWS
     grid = (B * Hkv * -(-g // P), -(-Sq // RQ))
-    return TcPlan(DP, BK, P, RQ, grid, tc_smem(DP))
+    return TcPlan(DP, BK, P, RQ, grid,
+                  tf32x3_smem(DP) if f32 else tc_smem(DP))
 
 
 def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
@@ -107,17 +133,16 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
     pointer must be 16-byte aligned and every stride of a dim longer than
     1 a multiple of 16 bytes (a dim of length 1 is never stepped, so its
     stride is replaced by one that is)."""
-    es = t.element_size()
     if t.data_ptr() % 16:
         return None
-    out = []
-    for n, st in zip(t.shape[:3], t.stride()[:3]):
-        if n == 1:
-            st = 16 // es
-        if (st * es) % 16 or st <= 0:
+    es = t.element_size()
+    (n0, n1, n2, _), (s0, s1, s2, _) = t.shape, t.stride()
+    out = (16 // es if n0 == 1 else s0, 16 // es if n1 == 1 else s1,
+           16 // es if n2 == 1 else s2)
+    for st in out:
+        if st <= 0 or (st * es) % 16:
             return None
-        out.append(st)
-    return tuple(out)
+    return out
 
 
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 \
@@ -134,8 +159,10 @@ def _entry():
 
 
 @functools.cache
-def _entry_tc():
-    f = _build.library("flash_attention").rt_flash_attention_tc
+def _entry_tma(body: str):
+    name = {"wgmma": "rt_flash_attention_tc",
+            "tf32x3": "rt_flash_attention_tf32x3"}[body]
+    f = getattr(_build.library("flash_attention"), name)
     f.argtypes = _ARGS + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
@@ -194,22 +221,23 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
     if out.numel() == 0:
         return out
     body = body_of(q.dtype, Dh)
-    if body == "wgmma":
+    if body != "cuda_cores":
         strides = [tma_strides(t) for t in (q, k, v)]
         for st, name in zip(strides, "qkv"):
             if st is None:
                 raise ValueError(
-                    f"{name}: the tensor-core body reads it by TMA, which "
+                    f"{name}: the {body} body reads it by TMA, which "
                     "needs a 16-byte aligned pointer and strides that are "
                     "multiples of 16 bytes (make it contiguous)")
-        plan = plan_tc(B, Hq, Hkv, Sq, Skv, Dh)
-        entry, extra = _entry_tc(), (plan.DP, plan.P, plan.RQ, *plan.grid)
+        plan = plan_tc(B, Hq, Hkv, Sq, Skv, Dh, q.dtype)
+        entry, extra = _entry_tma(body), (plan.DP, plan.P, plan.RQ,
+                                          *plan.grid)
     else:
         if -(-Sq // _BQ) > 65535:  # allow[R5]: the grid's y limit
             raise ValueError(f"Sq={Sq} needs more than 65,535 query tiles")
         strides = [t.stride()[:3] for t in (q, k, v)]
         entry, extra = _entry(), ()
-    with torch.cuda.device(dev):
+    with _build.on_device(dev):
         rc = entry(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, Dh,

@@ -19,7 +19,7 @@ form of R4's "no parallel bookkeeping".
     (library, symbol, arguments): each ``autotune.CANDIDATES[kind]``
     candidate at each ``autotune.PROBES`` shape and each
     :data:`PRODUCTION` shape, pairwise_dist's plan per dtype, and the
-    flash bodies at every head dim up to 256;
+    three flash bodies at every head dim up to 256 that each takes;
   * :func:`findings` -- an entry over the budget, a candidate its plan
     refuses, a ``CANDIDATES`` kind without a size function
     (:data:`SIZES`), and a ``csrc/*.cu`` launch with dynamic shared
@@ -118,10 +118,12 @@ def _edge_size(p, c):
                                        (K, m_out))
 
 
-def _flash_tc_size(Dh):
+def _flash_tc_size(Dh, dtype=torch.bfloat16):
     # the embed path's plan; the bytes depend on the head dim alone
-    t = _flash.plan_tc(256, 16, 8, 32, 32, Dh)
-    return t.smem_bytes, ("flash_attention", "rt_flash_tc_smem", (t.DP,))
+    t = _flash.plan_tc(256, 16, 8, 32, 32, Dh, dtype)
+    sym = "rt_flash_tf32x3_smem" if dtype == torch.float32 else \
+        "rt_flash_tc_smem"
+    return t.smem_bytes, ("flash_attention", sym, (t.DP,))
 
 
 # CANDIDATES kind -> (probe, candidate) -> (bytes, (library, symbol, args))
@@ -140,7 +142,7 @@ LAUNCHES = {
     "hop.cu": ("hop_smem",),
     "edge_select.cu": ("edge_smem",),
     "prune.cu": ("table_bytes", "smem_bytes"),
-    "flash_attention.cu": ("cuda_cores_smem", "smem_bytes"),
+    "flash_attention.cu": ("cuda_cores_smem", "smem_bytes", "tf32x3_smem"),
     "distance.cu": ("kSmem",),
 }
 _LAUNCH = re.compile(r"<<<(.*?)>>>", re.S)
@@ -186,6 +188,9 @@ def entries(candidates=None) -> list[dict]:
     for Dh in range(16, _flash.MAX_HEAD_DIM + 1, 16):
         out.append(_entry("flash[wgmma]", f"Dh {Dh}", {},
                           lambda Dh=Dh: _flash_tc_size(Dh)))
+    for Dh in range(4, _flash.MAX_HEAD_DIM + 1, 4):
+        out.append(_entry("flash[tf32x3]", f"Dh {Dh}", {},
+                          lambda Dh=Dh: _flash_tc_size(Dh, torch.float32)))
     for Dh in range(1, _flash.MAX_HEAD_DIM + 1):
         out.append(_entry(
             "flash[cuda_cores]", f"Dh {Dh}", {}, lambda Dh=Dh: (

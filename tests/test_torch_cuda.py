@@ -19,8 +19,10 @@ attention agrees with its plain version over the variant grid, with q, k and v i
 in bf16 and f16, one bf16 ulp plus that 1e-5 (both round one f32 result
 once, summed in other orders), on the body its dtype and head dim name
 (16-bit with Dh % 16 == 0: the tensor-core body, over every config's
-head dim, GQA groups up to 48 and query lengths around its tiles), and
-gives 0 on a row that sees no key, as the TPU kernel does. The all-pairs distance
+head dim, GQA groups up to 48 and query lengths around its tiles; f32
+with Dh % 4 == 0: the 3xTF32 body, over head dims from 4 to 256, GQA
+groups and query lengths alike), and gives 0 on a row that sees no key,
+as the TPU kernel does. The all-pairs distance
 kernel runs ``repro``'s shape sweep (tests/test_kernels.py) and one ragged
 large shape in f32, bf16 and f16, l2 and ip, within 1e-5 of its terms, the
 16-bit types also within ``half_gate`` (and on dots that cancel to 0, from
@@ -563,6 +565,8 @@ def _flash_body(dtype, Dh):
     """The body the dispatch must pick: dtype and head dim alone."""
     if dtype != torch.float32 and Dh % 16 == 0:
         return "wgmma"
+    if dtype == torch.float32 and Dh % 4 == 0:
+        return "tf32x3"
     return "cuda_cores"
 
 
@@ -608,6 +612,24 @@ def test_flash_attention_tensor_core_grid(dev, Dh, g, Sq, dtype):
     assert bool((err <= _bf16_tol(got, want)).all())
 
 
+@pytest.mark.parametrize("Sq", [1, 32, 33, 100])
+@pytest.mark.parametrize("g", [1, 2, 48])
+@pytest.mark.parametrize("Dh", [4, 36, 64, 100, 128, 196, 256])
+def test_flash_attention_tf32x3_grid(dev, Dh, g, Sq):
+    """The 3xTF32 body over head dims that zero-fill to 64, 128, 192 and
+    256 columns, GQA groups and query lengths around its tiles, causal
+    over Skv = Sq + 7 keys (q_offset 7): within 1e-5 of the plain
+    version."""
+    Hkv = 2 if g < 48 else 1
+    q, k, v = _qkv(dev, 1, g * Hkv, Hkv, Sq, Sq + 7, Dh, torch.float32,
+                   seed=Dh + g + Sq)
+    ops.reset_launch_counts()
+    got = flash_attention_cuda(q, k, v, q_offset=7)
+    assert ops.body_counts()["flash_attention[tf32x3]"] == 1
+    want = ref.attention(q, k, v, q_offset=7)
+    assert float((got - want).abs().max()) <= 1e-5
+
+
 def test_flash_attention_tensor_core_row_seeing_no_key_is_zero(dev):
     """As below, through the tensor-core body (bf16, Dh 64)."""
     q, k, v = _qkv(dev, 1, 2, 2, 8, 16, 64, torch.bfloat16, seed=1)
@@ -637,12 +659,19 @@ def test_flash_attention_refuses_autograd(dev):
 
 def test_flash_attention_tensor_core_needs_tma_strides(dev):
     """A 16-bit input whose position stride is not a multiple of 16
-    bytes goes to no other body: the wrapper raises."""
+    bytes goes to no other body: the wrapper raises; so does an f32 input
+    whose pointer is 4 bytes off."""
     q, k, v = _qkv(dev, 1, 2, 2, 8, 8, 64, torch.bfloat16, seed=3)
     odd = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16,
                       device=dev)[..., 2:66]
     with pytest.raises(ValueError, match="TMA"):
         flash_attention_cuda(odd, k, v)
+    q, k, v = _qkv(dev, 1, 2, 2, 8, 8, 64, torch.float32, seed=3)
+    off = torch.zeros((1, 2, 8, 68), device=dev)[..., 1:65]
+    ops.reset_launch_counts()
+    with pytest.raises(ValueError, match="TMA"):
+        flash_attention_cuda(off, k, v)
+    assert ops.launch_counts()["flash_attention"] == 0
 
 
 def test_flash_attention_row_seeing_no_key_is_zero(dev):

@@ -203,7 +203,7 @@ def test_per_shard_search_on_repro_tables(ref, data, repro_sharded):
     within 0.01 of ``repro``'s against its ``brute_force``, every id in
     range and no padded row."""
     _, _, qv, L, R, _, gt = data
-    carried = ShardedRangeIndex.from_numpy(vars(repro_sharded))
+    carried = ShardedRangeIndex.from_numpy(vars(repro_sharded), device="cpu")
     assert carried.storage == StorageConfig()
     got, _ = _host_serve(carried, qv, L, R)
     want, _ = _repro_host_serve(ref, repro_sharded, qv, L, R)
@@ -215,13 +215,38 @@ def test_per_shard_search_on_repro_tables(ref, data, repro_sharded):
     assert _in_range(got, L, R) and got.max() <= N - 1
 
 
+def _tiny_sharded_fields():
+    rng = np.random.default_rng(0)
+    return {"vectors": rng.standard_normal((2, 8, 4)).astype(np.float32),
+            "neighbors": rng.integers(0, 8, (2, 8, 3, 2)).astype(np.int32),
+            "bounds": np.array([[0, 8], [8, 16]], np.int32), "logn": 3,
+            "m": 2}
+
+
+def test_from_numpy_without_a_card_or_a_device_raises(monkeypatch):
+    """No entry point stays on the CPU unasked: with no card and no
+    device given, ``from_numpy`` raises ``resolve_device``'s error."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedRangeIndex.from_numpy(_tiny_sharded_fields())
+
+
+def test_from_numpy_places_the_tables_on_the_device_asked():
+    carried = ShardedRangeIndex.from_numpy(_tiny_sharded_fields(),
+                                           device="cpu")
+    assert {t.device.type for t in (carried.vectors, carried.neighbors,
+                                    carried.bounds)} == {"cpu"}
+    assert carried.n_shards == 2 and carried.m == 2 and carried.logn == 3
+    assert carried.bounds.dtype == torch.int32
+
+
 def test_from_numpy_takes_bf16_as_uint16_bits(ref, repro_sharded):
     bf16 = ref.storage.encode_vectors(repro_sharded.vectors,
                                       ref.StorageConfig.compact())
     fields = dict(vars(repro_sharded), vectors=bf16, storage=None)
-    a = ShardedRangeIndex.from_numpy(fields)
+    a = ShardedRangeIndex.from_numpy(fields, device="cpu")
     b = ShardedRangeIndex.from_numpy(
-        dict(fields, vectors=np.asarray(bf16).view(np.uint16)))
+        dict(fields, vectors=np.asarray(bf16).view(np.uint16)), device="cpu")
     assert a.vectors.dtype == b.vectors.dtype == torch.bfloat16
     assert torch.equal(a.vectors.view(torch.int16),
                        b.vectors.view(torch.int16))

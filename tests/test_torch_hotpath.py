@@ -83,6 +83,18 @@ def test_hotpath_smoke_on_cpu_has_repro_schema(tmp_path, monkeypatch):
     assert autotune.all_picks() == {}
 
 
+def test_autotune_without_a_card_or_a_device_raises(monkeypatch):
+    """A timing run that finds no card does not fall back to the host
+    clock: with no device given it raises ``resolve_device``'s error
+    before it runs a candidate."""
+    calls = []
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        autotune.autotune("gather_dist", lambda split: calls.append(split),
+                          iters=1, candidates=[{"split": 2}])
+    assert calls == []
+
+
 def test_autotune_api_on_a_fake_run():
     calls = []
 

@@ -1,7 +1,7 @@
 """The tensor-core designs' arithmetic and host-side planning, on the CPU.
 
-The two redesigned kernels (``csrc/flash_attention.cu``'s 16-bit body and
-``csrc/distance.cu``) run only on the card. What their designs claim about
+The redesigned kernels (``csrc/flash_attention.cu``'s 16-bit and 3xTF32
+bodies and ``csrc/distance.cu``) run only on the card. What their designs claim about
 rounding is checked here by emulating it in torch and holding the result
 against ``repro``'s references (``repro.kernels.ref``), with the card
 gates' own tolerances:
@@ -12,6 +12,13 @@ gates' own tolerances:
     rounded once -- within ``bf16_tol`` (one bf16 ulp plus 1e-5) of the
     reference at S >= 256; the same with P rounded once to bf16 is not,
     which is why the kernel splits P;
+  * flash attention in f32 (the 3xTF32 body): Q (scaled), K, V and P each
+    split into big = ``cvt.rna`` tf32 and small = a - big, the small half
+    read truncated, three tf32 products a step with small x small dropped,
+    each wgmma step's sum truncated to f32 (the big product and the two
+    small ones of S in accumulators of their own), at a cut-down version
+    of each f32 shape of the card's grid -- within FLASH_F32_TOL of the
+    f64 attention; one TF32 pass, and P rounded once to tf32, are not;
   * pairwise distance: 3xTF32 (``cvt.rna`` to tf32 for the big parts, the
     hardware's truncation of the low 13 bits for the small ones, the
     small x small term dropped, f32 sums) within DIST_RTOL = 1e-5 of
@@ -132,6 +139,168 @@ def test_flash_emulation_without_rounding_is_the_reference():
     got = emulate_flash(q, k, v, torch.float32)
     assert float((got - torch.from_numpy(want.copy())).abs().max()) \
         <= FLASH_F32_TOL
+
+
+# -- flash attention in f32: the 3xTF32 body ---------------------------------
+
+def _rna(a):
+    return ((a.view(torch.int32) + (1 << 12)) & ~0x1FFF).view(torch.float32)
+
+
+def _trunc(a):
+    return (a.view(torch.int32) & ~0x1FFF).view(torch.float32)
+
+
+def _rz(v):
+    """f64 -> f32 rounded toward zero (a wgmma step's accumulation)."""
+    f = v.float()
+    over = f.double().abs() > v.abs()
+    return torch.where(over, torch.nextafter(f, torch.zeros_like(f)), f)
+
+
+def _steps(acc, pairs):
+    """acc (f32) += each (a, b) product of tf32-valued f32 operands in
+    turn, one wgmma step each: the exact sum, truncated to f32."""
+    for a, b in pairs:
+        acc = _rz(acc.double() + a.double() @ b.double())
+    return acc
+
+
+def emulate_flash_f32(q, k, v, *, mode="3xtf32", causal=True, window=None,
+                      softcap=None, q_offset=0, bk=32):
+    """The 3xTF32 body's arithmetic on f32 q [B, Hq, Sq, Dh], k / v [B,
+    Hkv, Skv, Dh]: S = (scale q).k^T in k8 steps, the online softmax over
+    ``bk``-key tiles in log2 units, P.V in 8-key steps. ``mode``:
+    "3xtf32" as the kernel (big.big into one accumulator and small.big +
+    big.small into another for S; small.big, big.small, big.big into O);
+    "1xtf32": one tf32 product of the rna-rounded operands; "p_once": as
+    the kernel but P rounded once to tf32 (P.V = rna(P).(V_big + V_small))."""
+    B, Hq, Sq, Dh = q.shape
+    g = Hq // k.shape[1]
+    Skv = k.shape[2]
+    kk_ = k.repeat_interleave(g, 1)
+    vv = v.repeat_interleave(g, 1)
+    qs = q * (1.0 / Dh ** 0.5)
+    qb, kb, vb = _rna(qs), _rna(kk_), _rna(vv)
+    qsm, ksm, vsm = _trunc(qs - qb), _trunc(kk_ - kb), _trunc(vv - vb)
+    big = torch.zeros((B, Hq, Sq, Skv))
+    small = torch.zeros((B, Hq, Sq, Skv))
+    for c in range(0, Dh, 8):
+        sl = slice(c, c + 8)
+        kt = lambda t: t[..., sl].transpose(-1, -2)  # noqa: E731
+        big = _steps(big, [(qb[..., sl], kt(kb))])
+        if mode != "1xtf32":
+            small = _steps(small, [(qsm[..., sl], kt(kb)),
+                                   (qb[..., sl], kt(ksm))])
+    s_all = big + small
+    qpos = torch.arange(Sq)[:, None] + q_offset
+    m = torch.full((B, Hq, Sq, 1), -1e30)
+    l = torch.zeros((B, Hq, Sq, 1))
+    o = torch.zeros((B, Hq, Sq, Dh))
+    for kt0 in range(0, Skv, bk):
+        x = s_all[..., kt0:kt0 + bk]
+        if softcap is not None:
+            x = softcap * torch.tanh(x / softcap)
+        x = x * LOG2E
+        kpos = torch.arange(kt0, min(kt0 + bk, Skv))[None, :]
+        ok = torch.ones_like(kpos <= qpos)
+        if causal:
+            ok &= kpos <= qpos
+        if window is not None:
+            ok &= kpos > qpos - window
+        x = torch.where(ok, x, -torch.inf)
+        m_new = torch.maximum(m, x.amax(-1, keepdim=True))
+        corr = torch.exp2(m - m_new)
+        p = torch.exp2(x - m_new)
+        l = l * corr + p.sum(-1, keepdim=True)
+        m = m_new
+        o = o * corr
+        for j in range(0, p.shape[-1], 8):
+            pj = p[..., j:j + 8]
+            r = slice(kt0 + j, kt0 + j + 8)
+            pb = _rna(pj)
+            if mode == "1xtf32":
+                o = _steps(o, [(pb, vb[..., r, :])])
+            elif mode == "p_once":
+                o = _steps(o, [(pb, vsm[..., r, :]), (pb, vb[..., r, :])])
+            else:
+                o = _steps(o, [(_trunc(pj - pb), vb[..., r, :]),
+                               (pb, vsm[..., r, :]), (pb, vb[..., r, :])])
+    return o / l.clamp_min(1e-30)
+
+
+def attention_f64(q, k, v, *, causal=True, window=None, softcap=None,
+                  q_offset=0):
+    B, Hq, Sq, Dh = q.shape
+    g = Hq // k.shape[1]
+    qd = q.double() / Dh ** 0.5
+    kd = k.double().repeat_interleave(g, 1)
+    vd = v.double().repeat_interleave(g, 1)
+    s = qd @ kd.transpose(-1, -2)
+    if softcap is not None:
+        s = softcap * torch.tanh(s / softcap)
+    qpos = torch.arange(Sq)[:, None] + q_offset
+    kpos = torch.arange(k.shape[2])[None, :]
+    ok = torch.ones_like(kpos <= qpos)
+    if causal:
+        ok &= kpos <= qpos
+    if window is not None:
+        ok &= kpos > qpos - window
+    s = torch.where(ok, s, -torch.inf)
+    return torch.softmax(s, -1) @ vd
+
+
+# chip_smoke.py's f32 flash shapes, cut to one batch and a head or two
+# (Hq, Hkv, Sq, Skv, Dh, keyword arguments)
+F32_GRID = {
+    "path f32": (4, 2, 32, 32, 128, {}),
+    "window f32": (2, 1, 512, 512, 128, {"window": 128}),
+    "softcap f32": (2, 1, 256, 256, 256, {"softcap": 50.0}),
+    "bidirectional f32": (2, 2, 200, 200, 64, {"causal": False}),
+    "q_offset f32": (2, 1, 100, 256, 128, {"q_offset": 156}),
+    "Dh 100 f32": (2, 1, 256, 256, 100, {}),
+}
+
+
+@pytest.fixture(scope="module")
+def f32_errors():
+    """Per F32_GRID shape and emulation mode, the largest |difference|
+    from the f64 attention, on randn inputs as the card's grid draws."""
+    out = {}
+    for i, (name, (Hq, Hkv, Sq, Skv, Dh, kw)) in enumerate(F32_GRID.items()):
+        rng = np.random.default_rng(100 + i)
+        q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(
+            np.float32)) for sh in ((1, Hq, Sq, Dh), (1, Hkv, Skv, Dh),
+                                    (1, Hkv, Skv, Dh)))
+        want = attention_f64(q, k, v, **kw)
+        out[name] = {mode: float((emulate_flash_f32(q, k, v, mode=mode, **kw)
+                                  .double() - want).abs().max())
+                     for mode in ("3xtf32", "1xtf32", "p_once")}
+    return out
+
+
+@pytest.mark.parametrize("name", sorted(F32_GRID))
+def test_flash_3xtf32_is_within_the_f32_gate(f32_errors, name):
+    assert f32_errors[name]["3xtf32"] <= FLASH_F32_TOL, f32_errors[name]
+
+
+@pytest.mark.parametrize("mode", ["1xtf32", "p_once"])
+def test_flash_one_tf32_rounding_breaks_the_f32_gate(f32_errors, mode):
+    """One TF32 pass, or P rounded once to tf32 beside split products,
+    puts the output outside the 1e-5 gate at some shape of the grid."""
+    worst = max(e[mode] for e in f32_errors.values())
+    assert worst > FLASH_F32_TOL, f32_errors
+
+
+def test_flash_3xtf32_emulation_agrees_with_repro():
+    """The f64 attention the emulation is held to is ``repro``'s
+    reference function: in f32 the two agree within the f32 gate."""
+    rng = np.random.default_rng(7)
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in ((1, 4, 64, 128), (1, 2, 64, 128), (1, 2, 64, 128)))
+    want = np.asarray(jref.attention(*(jnp.asarray(a) for a in (q, k, v))))
+    got = attention_f64(*(torch.from_numpy(a) for a in (q, k, v)))
+    assert float(np.abs(got.numpy() - want).max()) <= FLASH_F32_TOL
 
 
 # -- pairwise distance ------------------------------------------------------
@@ -284,8 +453,11 @@ def test_half_gate_chunks_agree():
 @pytest.mark.parametrize("dtype,Dh,body", [
     (torch.bfloat16, 128, "wgmma"), (torch.float16, 96, "wgmma"),
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 256, "wgmma"),
-    (torch.float32, 128, "cuda_cores"), (torch.bfloat16, 7, "cuda_cores"),
+    (torch.float32, 128, "tf32x3"), (torch.bfloat16, 7, "cuda_cores"),
     (torch.float16, 40, "cuda_cores"), (torch.float32, 7, "cuda_cores"),
+    (torch.float32, 4, "tf32x3"), (torch.float32, 100, "tf32x3"),
+    (torch.float32, 256, "tf32x3"), (torch.float32, 66, "cuda_cores"),
+    (torch.bfloat16, 72, "cuda_cores"),
 ])
 def test_flash_body_by_dtype_and_head_dim(dtype, Dh, body):
     assert tflash.body_of(dtype, Dh) == body
@@ -351,6 +523,46 @@ def test_flash_plan_shared_memory(Dh):
     assert plan.smem_bytes <= SMEM_PER_BLOCK
     if plan.DP <= 128:
         assert 4 * (plan.smem_bytes + 1024) <= SMEM_PER_SM
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,Sq", [
+    (256, 16, 8, 32), (4, 16, 8, 512), (2, 48, 1, 1), (1, 48, 1, 31),
+    (1, 8, 2, 33), (4, 16, 16, 200), (1, 6, 2, 20), (4, 16, 8, 100)])
+def test_flash_tf32x3_plan_covers_every_row_once(B, Hq, Hkv, Sq):
+    """The 3xTF32 body takes the tensor-core body's tiling: every row
+    once, GQA heads packed at Sq <= 32 (the embed path's two heads of 32
+    fill a tile, B * Hkv blocks), 64 positions of one head beyond."""
+    plan = tflash.plan_tc(B, Hq, Hkv, Sq, Sq, 100, torch.float32)
+    seen = _rows_of(plan, B, Hq, Hkv, Sq)
+    assert len(seen) == len(set(seen)) == B * Hq * Sq
+    assert plan.P * plan.RQ <= 64 and plan.P <= Hq // Hkv
+    assert (plan.DP, plan.BK) == (128, 32)
+    bf16 = tflash.plan_tc(B, Hq, Hkv, Sq, Sq, 128)
+    assert (plan.P, plan.RQ, plan.grid) == (bf16.P, bf16.RQ, bf16.grid)
+    if (B, Hq, Hkv, Sq) == (256, 16, 8, 32):
+        assert (plan.P, plan.RQ, plan.grid) == (2, 32, (256 * 8, 1))
+
+
+@pytest.mark.parametrize("Dh", range(4, 257, 4))
+def test_flash_tf32x3_shared_memory(Dh):
+    """The mirror of ``x3::tf32x3_smem``: Q and its small half (64 rows),
+    K, V and the scratch tile (32 keys) in f32 at DP = Dh rounded up to
+    64, 64 bytes of barriers, 896 of alignment headroom; within a block's
+    232,448 B at every head dim, two blocks an SM up to DP 128."""
+    plan = tflash.plan_tc(256, 16, 8, 32, 32, Dh, torch.float32)
+    assert plan.DP == -(-Dh // 64) * 64
+    assert plan.smem_bytes == tflash.tf32x3_smem(plan.DP) \
+        == (2 * 64 + 3 * 32) * plan.DP * 4 + 64 + 896
+    assert plan.smem_bytes <= SMEM_PER_BLOCK
+    if plan.DP <= 128:
+        assert 2 * (plan.smem_bytes + 1024) <= SMEM_PER_SM
+    assert tflash.body_of(torch.float32, Dh) == "tf32x3"
+
+
+@pytest.mark.parametrize("Dh", [1, 6, 66, 260])
+def test_flash_tf32x3_plan_rejects_other_head_dims(Dh):
+    with pytest.raises(ValueError, match="multiple of 4"):
+        tflash.plan_tc(1, 2, 1, 8, 8, Dh, torch.float32)
 
 
 @pytest.mark.parametrize("Dh", [7, 8, 40, 264])
