@@ -135,23 +135,25 @@ the full-size run, one card). It
      embedded with attention on plain torch, and peak device memory;
      fails if flash_attention, prune, gather_dist or hop never launched,
      unless every flash launch (28 layers x each embed call) went to its
-     tensor-core body, if serving added a cache entry, if recall is not within 0.01 of the
-     all-plain path's, if the async pass did not serve every request
-     within 0.01 of the sync engine's recall or added a cache entry, or if a subsample row's cosine to the plain
+     tensor-core body by TMA, if serving added a cache entry, if recall
+     is not within 0.01 of the all-plain path's, if the async pass did
+     not serve every request within 0.01 of the sync engine's recall or
+     added a cache entry, or if a subsample row's cosine to the plain
      attention's is below 0.9999 or an element differs by more than 0.05;
      profiles one embed call;
   10a. embeds 4,096 items (LM_F32_ITEMS) with the same model and params
      computing in f32 (``lm_embed_f32``: every count at 0 before it,
      TF32 off for torch's matmuls and cuDNN, printed), then all-plain;
      prints embed s and tokens/s of both beside the bf16 leg's; fails
-     unless all 28 x 16 flash launches went to the 3xTF32 body, the
+     unless all 28 x 16 flash launches went to the 3xTF32 body by TMA, the
      plain run launched none, the embeddings are finite and every row's
      cosine to the plain run's is >= 0.99999 (``lm embed f32[...]``);
   11. holds the flash-attention kernel against its plain version at the
      path's shape (bf16, f16 and f32), at S = 4,096 and over a variant grid
      (window, softcap, bidirectional, q_offset, head dims 100 and 66 in
-     f32 and 72 in bf16; q, k and v in the
-     projections' transposed layout) and at the lm decode phase's prefill
+     f32 and 40, 66 and 72 in bf16, a q view 2 bytes off its allocation;
+     q, k and v in the projections' transposed layout) and at the lm
+     decode phase's prefill
      shapes (gemma2-9b's local and global layers, B 4, S 4,608, Dh 256,
      softcap 50; granite-20b's MQA, g = 48; seamless's cross-attention
      over contiguous K/V; every other attention of leg B at its config's
@@ -159,11 +161,13 @@ the full-size run, one card). It
      g = 8, the MoEs, zamba2's shared block, seamless's bidirectional
      encoder and causal decoder) (f32 within 1e-5, bf16 and f16 within
      one bf16 ulp and the f32 tolerance, see ``bf16_tol``), and fails a
-     shape whose launch went to another body than its dtype and head dim
-     name (16-bit at Dh % 16 == 0: the tensor-core body; f32 at Dh % 4 ==
-     0: the 3xTF32 one; the rest: the CUDA-core one) and fails unless
-     the grid launched every body, with SDPA's time beside it where SDPA
-     computes the same function; the prune kernel at d = 1,024 and C = 144 on one build
+     shape whose launch went to another body than its dtype names (16-bit:
+     the tensor-core body; f32: the 3xTF32 one) or to another loader than
+     its layout names (TMA where every pointer and stride is on 16 bytes,
+     cp.async at ``FLASH_CP_ASYNC``), and fails unless the grid launched
+     both bodies and both loaders, with SDPA's time beside it (with a
+     prebuilt boolean mask at a window or a q_offset; none with a
+     softcap); the prune kernel at d = 1,024 and C = 144 on one build
      chunk's own candidates (``prune_check_wide``), each prune record
      with its regime (staged rows, shared memory and warps a CTA);
      one search level of the lm build under torch.profiler
@@ -398,11 +402,16 @@ FLASH_SHAPES = {
                           {"causal": False}),
     "q_offset": (4, 16, 8, 100, 256, 128, "bfloat16", {"q_offset": 156}),
     "q_offset f32": (4, 16, 8, 100, 256, 128, "float32", {"q_offset": 156}),
-    # a head dim the bodies zero-fill (f32 Dh 100 -> 128 columns) or leave
-    # to the CUDA cores (bf16 Dh 72, f32 Dh 66)
+    # head dims the bodies zero-fill to DP: by TMA where a row of Dh
+    # values is a multiple of 16 bytes (f32 Dh 100, bf16 Dh 72 and 40),
+    # by cp.async where it is not (f32 Dh 66: 264 bytes; bf16 Dh 66: 132);
+    # and a q view 2 bytes off its allocation (cp.async in 2-byte pieces)
     "Dh 100 f32": (4, 16, 8, 256, 256, 100, "float32", {}),
     "Dh 72": (4, 16, 8, 256, 256, 72, "bfloat16", {}),
     "Dh 66 f32": (4, 16, 8, 256, 256, 66, "float32", {}),
+    "Dh 40": (4, 16, 8, 256, 256, 40, "bfloat16", {}),
+    "Dh 66": (4, 16, 8, 256, 256, 66, "bfloat16", {}),
+    "unaligned": (4, 16, 8, 256, 256, 128, "bfloat16", {}),
     # the lm decode phase's prefill shapes: gemma2-9b's local and global
     # layers, granite-20b's MQA (g = 48), seamless's cross-attention over
     # the contiguous K/V that models/attention.py::cross_kv makes
@@ -430,6 +439,10 @@ FLASH_PATH_SHAPES = ("gemma2 local", "gemma2 global", "granite",
                      "granite-moe", "phi3.5-moe", "zamba2 shared",
                      "seamless encoder", "seamless decoder")
 FLASH_CONTIGUOUS_KV = ("seamless cross",)
+# q as a view 2 bytes into a [B, S, Hq, Dh + 8] buffer
+FLASH_UNALIGNED_Q = ("unaligned",)
+# the shapes TMA cannot read, so the cp.async loader fills the body
+FLASH_CP_ASYNC = ("Dh 66 f32", "Dh 66", "unaligned")
 
 
 def fail(msg: str) -> None:
@@ -1184,22 +1197,47 @@ def attention_pairs(Sq, Skv, causal, window, q_offset) -> int:
     return int(ok.sum())
 
 
+def sdpa_call(torch, q, k, v, kw):
+    """``fn(i)``: one ``scaled_dot_product_attention`` call computing what
+    the flash kernel computes with keyword arguments ``kw``, or None where
+    no such call exists (a softcap). A window or a q_offset becomes a
+    boolean mask, built here, outside the calls that are timed."""
+    import torch.nn.functional as F
+
+    if kw.get("softcap") is not None:
+        return None
+    causal = kw.get("causal", True)
+    window, q_offset = kw.get("window"), kw.get("q_offset", 0)
+    if window is None and not q_offset:
+        return lambda i: F.scaled_dot_product_attention(
+            q, k, v, is_causal=causal, enable_gqa=True)
+    qpos = torch.arange(q.shape[2], device=q.device)[:, None] + q_offset
+    kpos = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones_like(qpos <= kpos)
+    if causal:
+        mask &= kpos <= qpos
+    if window is not None:
+        mask &= kpos > qpos - window
+    return lambda i: F.scaled_dot_product_attention(
+        q, k, v, attn_mask=mask, enable_gqa=True)
+
+
 def flash_checks(torch) -> dict:
     """The flash-attention kernel against its plain version on the card at
     the embed path's shape, one long shape and the variant grid, each
-    shape on the body ``body_of`` names for it (every body is launched):
+    shape on the body ``body_of`` names for it and the loader
+    ``loader_of`` names (cp.async at FLASH_CP_ASYNC, TMA elsewhere):
     f32 within 1e-5, bf16 within ``bf16_tol``; ms, plain ms, the bound
     (bytes at 3.35 TB/s or flops at the 16-bit tensor-core peak; in f32
     three times the flops at the TF32 peak, the least full f32 precision
-    takes) and, where SDPA computes the same function (causal or not, no
-    window, softcap or offset), its ms as library_ms; beside each ms, the
-    same calls with the host ahead of the card (``ahead_ms``) and the
-    kernel's device ms with L2 cold."""
-    import torch.nn.functional as F
-
+    takes) and, where SDPA computes the same function (no softcap; a
+    window or a q_offset as a boolean mask built before the timed calls),
+    its ms as library_ms; beside each ms, the same calls with the host
+    ahead of the card (``ahead_ms``) and the kernel's device ms with L2
+    cold."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels.flash_attention import body_of, \
-        flash_attention_cuda
+        flash_attention_cuda, loader_of
 
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
@@ -1208,9 +1246,12 @@ def flash_checks(torch) -> dict:
     for name, (B, Hq, Hkv, Sq, S, Dh, dt, kw) in FLASH_SHAPES.items():
         dtype = getattr(torch, dt)
         # q, k and v in the path's layout: [B, S, H, Dh] viewed as
-        # [B, H, S, Dh]
-        q = torch.randn((B, Sq, Hq, Dh), generator=gen, device=dev,
-                        dtype=dtype).transpose(1, 2)
+        # [B, H, S, Dh]; the unaligned shape's q columns [1, Dh + 1) of a
+        # [B, Sq, Hq, Dh + 8] buffer
+        off = 1 if name in FLASH_UNALIGNED_Q else 0
+        q = torch.randn((B, Sq, Hq, Dh + 8 * off), generator=gen,
+                        device=dev, dtype=dtype)[..., off:off + Dh]
+        q = q.transpose(1, 2)
         k = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
                         dtype=dtype).transpose(1, 2)
         v = torch.randn((B, S, Hkv, Dh), generator=gen, device=dev,
@@ -1221,12 +1262,17 @@ def flash_checks(torch) -> dict:
         got = flash_attention_cuda(q, k, v, **kw)
         body = [b for b, c in flash_attention_cuda.body_launches.items()
                 if c][0]
+        loader = [b for b, c in flash_attention_cuda.loader_launches.items()
+                  if c][0]
         want = ref.attention(q, k, v, **kw)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
-        if body != body_of(dtype, Dh):
-            print(f"flash_attention[{name}]: launched the {body} body, "
-                  f"not {body_of(dtype, Dh)}", flush=True)
+        route = (body_of(dtype, Dh), loader_of(q, k, v))
+        expect = "cp.async" if name in FLASH_CP_ASYNC else "tma"
+        if (body, loader) != route or loader != expect:
+            print(f"flash_attention[{name}]: launched the {body} body by "
+                  f"{loader}, routed to {route}, expected the {expect} "
+                  "loader", flush=True)
             good = False
         elif dtype == torch.float32:
             good = float(err.max()) <= FLASH_F32_TOL
@@ -1253,11 +1299,8 @@ def flash_checks(torch) -> dict:
         pms = time_ms(torch, lambda i: ref.attention(q, k, v, **kw),
                       iters=3 if S >= 4096 else 10)
         lms = lahead = None
-        if not ({"window", "softcap"} & set(kw)) and not kw.get("q_offset"):
-            def sdpa(i):
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=kw.get("causal", True),
-                    enable_gqa=True)
+        sdpa = sdpa_call(torch, q, k, v, kw)
+        if sdpa is not None:
             lms = time_ms(torch, sdpa, iters=iters)
             lahead = ahead_ms(torch, sdpa, iters=iters)
         pairs = attention_pairs(Sq, S, kw.get("causal", True),
@@ -1273,16 +1316,18 @@ def flash_checks(torch) -> dict:
         rec = dict(ok=good, max_abs_err=float(err.max()), ms=kms,
                    device_ms=dms, ahead_ms=kahead, plain_ms=pms,
                    bound_ms=bms, bound_by=by, library_ms=lms,
-                   library_ahead_ms=lahead, body=body,
+                   library_ahead_ms=lahead, body=body, loader=loader,
                    shape=f"B={B} Hq={Hq} Hkv={Hkv} Sq={Sq} Skv={S} Dh={Dh} "
                          f"{dt}"
                          + (f" {json.dumps(kw)}" if kw else " causal")
                          + (" contiguous k/v" if name in FLASH_CONTIGUOUS_KV
+                            else "")
+                         + (" q 2 bytes off" if name in FLASH_UNALIGNED_Q
                             else ""))
         out[name] = rec
         print(f"kernel flash_attention[{name}] [{rec['shape']}] ({body} "
-              f"body): {kms:.4f} ms (device {dms:.4f}, L2 cold; host "
-              f"ahead {kahead:.4f}), plain {pms:.4f} ms, SDPA "
+              f"body, {loader}): {kms:.4f} ms (device {dms:.4f}, L2 cold; "
+              f"host ahead {kahead:.4f}), plain {pms:.4f} ms, SDPA "
               + ("n/a" if lms is None else
                  f"{lms:.4f} ms (host ahead {lahead:.4f})")
               + f", bound {bms:.4f} ms ({by}), max_abs_err "
@@ -1644,7 +1689,8 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
     results = engine.flush()
     serve_s = time.perf_counter() - t0
     counts = ops.launch_counts()
-    bodies = {k: v for k, v in ops.body_counts().items()
+    bodies = {k: v for k, v in {**ops.body_counts(),
+                                **ops.loader_counts()}.items()
               if k.startswith("flash_attention")}
     regimes = prune_regimes()
     st = engine.stats
@@ -1735,14 +1781,15 @@ def lm_serve(torch, n_items) -> tuple[dict, bool]:
              if counts[k] == 0]
     if never:
         fail(f"kernels never launched on the lm serve path: {never}")
-    # every layer of every embed call on the tensor-core body
+    # every layer of every embed call on the tensor-core body, by TMA
     calls = -(-n_items // LM_BATCH) + -(-LM_QUERIES // LM_BATCH)
     want_flash = cfg.n_layers * calls
     if counts["flash_attention"] != want_flash or \
-            bodies["flash_attention[wgmma]"] != want_flash:
+            bodies["flash_attention[wgmma]"] != want_flash or \
+            bodies["flash_attention[tma]"] != want_flash:
         fail(f"lm serve: {counts['flash_attention']} flash launches, "
              f"{json.dumps(bodies)}; expected {want_flash} ({cfg.n_layers} "
-             f"layers x {calls} embed calls), all on the wgmma body")
+             f"layers x {calls} embed calls), all on the wgmma body by TMA")
     if entries2 != entries1 or entries1 == entries0:
         print(f"lm serve: cache entries {entries0} -> {entries1} after "
               f"warmup -> {entries2} after serving", flush=True)
@@ -1776,7 +1823,8 @@ def lm_embed_f32(torch, cfg, params, bf16_tokens_per_s) -> tuple[dict,
     just after; then, warmed up alike, the same items with
     attention on plain torch. TF32 is off for torch's matmuls and cuDNN
     during the leg (set, printed, restored after). Gates: every flash
-    launch on the 3xTF32 body, n_layers a call; none on the plain run;
+    launch on the 3xTF32 body by TMA, n_layers a call; none on the plain
+    run;
     finite embeddings of the expected shape; least row cosine to the
     plain run >= LM_F32_MIN_COSINE."""
     import dataclasses
@@ -1810,7 +1858,8 @@ def lm_embed_f32(torch, cfg, params, bf16_tokens_per_s) -> tuple[dict,
                                seed=0, batch=LM_BATCH)
             sec = time.perf_counter() - t0
             runs[name] = (vec, sec, ops.launch_counts()["flash_attention"],
-                          {k: n for k, n in ops.body_counts().items()
+                          {k: n for k, n in {**ops.body_counts(),
+                                             **ops.loader_counts()}.items()
                            if k.startswith("flash_attention")})
     finally:
         (torch.backends.cuda.matmul.allow_tf32,
@@ -1833,8 +1882,9 @@ def lm_embed_f32(torch, cfg, params, bf16_tokens_per_s) -> tuple[dict,
         "max_abs_diff": float(np.abs(a - b).max())})
     gates = {
         f"{want} flash launches ({cfg.n_layers} layers x "
-        f"{-(-LM_F32_ITEMS // LM_BATCH)} calls), all tf32x3":
-            launches == want and bodies["flash_attention[tf32x3]"] == want,
+        f"{-(-LM_F32_ITEMS // LM_BATCH)} calls), all tf32x3 by TMA":
+            launches == want and bodies["flash_attention[tf32x3]"] == want
+            and bodies["flash_attention[tma]"] == want,
         "none on the plain run": plaunches == 0,
         "finite, of shape (items, d_model)":
             bool(np.isfinite(vec).all())
@@ -4364,10 +4414,11 @@ def run(args):
     flash = flash_checks(torch)
     for rec in flash.values():
         ok &= rec["ok"]
-    from repro_torch.kernels.flash_attention import BODIES
-    unlaunched = set(BODIES) - {rec["body"] for rec in flash.values()}
+    from repro_torch.kernels.flash_attention import BODIES, LOADERS
+    unlaunched = (set(BODIES) - {rec["body"] for rec in flash.values()}) \
+        | (set(LOADERS) - {rec["loader"] for rec in flash.values()})
     if unlaunched:
-        print(f"flash_attention: bodies no grid shape launched: "
+        print(f"flash_attention: bodies or loaders no grid shape launched: "
               f"{sorted(unlaunched)}", flush=True)
         ok = False
     wide = prune_check_wide(torch, lm_index, 2 * LM_EF)
@@ -4422,7 +4473,7 @@ def run(args):
         "at_path_f32": {k: flash["path f32"][k] for k in
                         ("ms", "device_ms", "ahead_ms", "plain_ms",
                          "bound_ms", "bound_by", "library_ms",
-                         "library_ahead_ms", "max_abs_err", "body")},
+                         "library_ahead_ms", "max_abs_err", "body", "loader")},
         "at_S4096": {k: flash["long"][k] for k in
                      ("ms", "plain_ms", "bound_ms", "bound_by",
                       "library_ms", "max_abs_err")}})

@@ -31,14 +31,18 @@ edge, search and codecs).
     ([B, S, H, Dh] viewed as [B, H, S, Dh]): the embed path's B = 256, S =
     32, and B = 1, S = 4,096. Reports the largest |difference| from the
     plain version.
-  * flash_f32: every shape of ``chip_smoke.py::FLASH_SHAPES`` that is f32
-    or that a 16-bit body leaves to the CUDA cores (Dh % 16 != 0), drawn
-    as the smoke draws them: the body that ran, ms by CUDA events over 20
-    back-to-back calls (the smoke's figure) and the same with the host
+  * flash_f32: every shape of ``chip_smoke.py::FLASH_SHAPES`` that is f32,
+    at a 16-bit head dim that is no multiple of 16, or read by the
+    cp.async loader, and the 16-bit ``path`` and ``long``, drawn as the
+    smoke draws them: the body and loader that ran, ms by CUDA events
+    over 20 back-to-back calls (the smoke's figure) and the same with the
+    host
     ahead of the card (``chip_smoke.py::ahead_ms``), device ms per launch
     from torch.profiler with L2 cold (``chip_smoke.py::device_ms``), the
     wrapper's host µs per call, SDPA's ms both ways where it computes the
-    same function, and the largest |difference| from the plain version.
+    same function (``chip_smoke.py::sdpa_call``), and the largest
+    |difference| from the plain version; where the tree's wrapper refuses
+    a shape, its error.
   * pairwise: l2 at the roofline's shape (Bq = 64, N = 100,000, d = 128,
     f32) and at 1,000 x 1,000,000 (d = 128) in f32, bf16 and f16, with
     the library call beside each (``chip_smoke.py::pairwise_library``:
@@ -559,41 +563,48 @@ def flash_part(out, dev, g):
 
 
 def flash_f32_part(out, dev, g):
-    import torch.nn.functional as F
-
     import chip_smoke as smoke
     from repro_torch.kernels.flash_attention import flash_attention_cuda
 
     for name, (B, Hq, Hkv, Sq, S, Dh, dt, kw) in smoke.FLASH_SHAPES.items():
         dtype = getattr(torch, dt)
-        if dtype != torch.float32 and Dh % 16 == 0:
+        if dtype != torch.float32 and Dh % 16 == 0 \
+                and name not in ("path", "long") + smoke.FLASH_CP_ASYNC:
             continue
-        q = torch.randn((B, Sq, Hq, Dh), generator=g, device=dev,
-                        dtype=dtype).transpose(1, 2)
+        off = 1 if name in smoke.FLASH_UNALIGNED_Q else 0
+        q = torch.randn((B, Sq, Hq, Dh + 8 * off), generator=g, device=dev,
+                        dtype=dtype)[..., off:off + Dh].transpose(1, 2)
         k, v = (torch.randn((B, S, Hkv, Dh), generator=g, device=dev,
                             dtype=dtype).transpose(1, 2) for _ in range(2))
-        before = dict(flash_attention_cuda.body_launches)
+        counts = ("body_launches", "loader_launches")
+        before = {a: dict(getattr(flash_attention_cuda, a, {}))
+                  for a in counts}
 
         def call(i=0):
             return flash_attention_cuda(q, k, v, **kw)
 
-        err = (call().float() - ref.attention(q, k, v, **kw).float()).abs()
-        rec = {"body": [b for b, c in flash_attention_cuda.body_launches
-                        .items() if c > before.get(b, 0)][0],
+        try:
+            got = call()
+        except (ValueError, RuntimeError) as e:
+            out[f"flash[{name}]"] = {"refused": str(e)}
+            del q, k, v
+            continue
+        err = (got.float() - ref.attention(q, k, v, **kw).float()).abs()
+        ran = {a: [b for b, c in getattr(flash_attention_cuda, a, {}).items()
+                   if c > before[a].get(b, 0)] for a in counts}
+        rec = {"body": ran["body_launches"][0],
+               "loader": (ran["loader_launches"] or [None])[0],
                "max_abs_err": float(err.max()),
                "ms": time_ms(call),
                "ahead_ms": smoke.ahead_ms(torch, call),
                "device_ms": smoke.device_ms(torch, call, "flash")[0],
                "host_us": smoke.host_us(torch, call)}
-        if not ({"window", "softcap"} & set(kw)) and not kw.get("q_offset"):
-            def sdpa(i=0):
-                return F.scaled_dot_product_attention(
-                    q, k, v, is_causal=kw.get("causal", True),
-                    enable_gqa=True)
-            rec["sdpa_ms"] = time_ms(sdpa)
+        sdpa = smoke.sdpa_call(torch, q, k, v, kw)
+        if sdpa is not None:
+            rec["sdpa_ms"] = time_ms(lambda: sdpa(0))
             rec["sdpa_ahead_ms"] = smoke.ahead_ms(torch, sdpa)
         out[f"flash[{name}]"] = rec
-        del q, k, v, err
+        del q, k, v, err, got
 
 
 def pairwise_part(out, dev, g):

@@ -15,38 +15,42 @@
 // read and written once); at S = 4096 the operations, 4 * pairs * Dh at
 // the bf16 tensor-core peak (989 TFLOP/s): 0.0695 ms for B 1, Hq 16, Dh
 // 128, causal; in f32, three tf32 products of that work at the TF32 peak
-// (495 TFLOP/s), the least full-precision f32 can take on this card. Three
-// bodies, chosen by dtype and head dim alone:
-//   * bf16 / f16 with Dh % 16 == 0 (every config's head dim): the
-//     tensor-core body below (namespace tc): wgmma fed by a TMA ring, P
-//     split into hi and lo halves so that P.V keeps 16 bits of P. The
-//     split makes its own floor 1.5x the function's: 0.104 ms at S = 4096.
-//   * f32 with Dh % 4 == 0 (TMA's 16-byte strides): the 3xTF32 body
-//     (namespace x3): the tensor-core body's tiling and TMA loads, both
-//     products as three tf32 wgmmas on big / small halves of each value.
-//   * 16-bit inputs with another head dim, and f32 with Dh % 4 != 0: the
-//     CUDA-core body, f32 FMAs: one block of 4 warps per (b*Hq + h, 32-row
-//     query tile); the query tile (pre-scaled) and each 32-key K/V tile
-//     staged in shared memory as f32, rows padded by 4 floats; each warp
-//     owns 8 query rows, lane j scores key j, row statistics reduce over
-//     the warp by shuffles, each lane accumulates P.V into the 4 (Dh <=
-//     128) or 8 (Dh <= 256) output columns it owns. Shared memory 96 * (Dh
-//     + 4) * 4 bytes.
-// All skip whole key tiles above the causal diagonal or outside the
-// window.
+// (495 TFLOP/s), the least full-precision f32 can take on this card. Two
+// bodies, chosen by dtype alone, at every head dim from 1 to 256 (zero-
+// filled to DP, Dh rounded up to 64):
+//   * bf16 / f16: the tensor-core body (namespace tc): wgmma, P split into
+//     hi and lo halves so that P.V keeps 16 bits of P. The split makes its
+//     own floor 1.5x the function's: 0.104 ms at S = 4096.
+//   * f32: the 3xTF32 body (namespace x3): the tensor-core body's tiling,
+//     both products as three tf32 wgmmas on big / small halves of each
+//     value.
+// Two loaders fill either body's shared memory, a template parameter of
+// each kernel, chosen by the inputs' pointers and strides alone
+// (kernels/flash_attention.py::loader_of):
+//   * TMA where q, k and v have 16-byte aligned pointers and every stride
+//     a multiple of 16 bytes: one thread asks for each tile, completion on
+//     mbarriers, columns past Dh and rows past Skv written as zeros by the
+//     tensor map;
+//   * cp.async otherwise (a row of Dh values that is no multiple of 16
+//     bytes -- 16-bit Dh % 8 != 0, f32 Dh % 4 != 0 -- in the projections'
+//     transposed layout, or a view off 16 bytes): every thread copies 16-,
+//     8- or 4-byte pieces (2-byte loads where a 16-bit view allows no
+//     wider) into exactly the bytes TMA's 128-byte swizzle writes, zeros
+//     past Dh, Skv and Sq in the same instructions (tc::load_tile),
+//     completion by cp.async.wait_group and a block barrier.
+// Both skip whole key tiles above the causal diagonal or outside the
+// window, and store the output in the widest pieces its rows allow.
+#include <string.h>
+
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 8;               // query rows per warp
-constexpr int kBQ = kWarps * kRows;    // query rows per block
-constexpr int kBK = 32;                // keys per tile: one per lane
 constexpr float kNeg = -1e30f;         // the TPU kernel's mask value
 
 enum Dtype : int { kF32 = 0, kBF16 = 1, kF16 = 2 };
+enum Loader : int { kLoadTma = 0, kLoadCpAsync = 1 };
 
 __device__ __forceinline__ float to_f(float x) { return x; }
 __device__ __forceinline__ float to_f(__nv_bfloat16 x) {
@@ -69,243 +73,22 @@ __device__ __forceinline__ __half from_f<__half>(float x) {
   return __float2half_rn(x);
 }
 
-struct Params {
-  const void* q;
-  const void* k;
-  const void* v;
-  void* o;
-  int Hq, g, Sq, Skv, Dh;
-  // element strides of batch, head and position (the last dim is dense)
-  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
-  float scale;
-  int causal;
-  int window;       // <= 0: none
-  int has_softcap;
-  float softcap;
-  int q_offset;
-};
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(rt::kFull, v, o));
-  return v;
-}
-
-// rows [r0, r0 + nrows) x Dh of one (batch, head) slab, as f32 times `mul`,
-// zero outside [0, limit) x [0, Dh), into s[nrows][ld]
-template <typename T>
-__device__ __forceinline__ void stage(float* s, int ld, const T* __restrict__ src,
-                                      long long ss, int r0, int nrows,
-                                      int limit, int Dh, int Dp, float mul) {
-  for (int i = threadIdx.x; i < nrows * Dp; i += kThreads) {
-    const int r = i / Dp, c = i - r * Dp;
-    const int row = r0 + r;
-    float x = 0.f;
-    if (row < limit && c < Dh) x = to_f(src[row * ss + c]) * mul;
-    s[r * ld + c] = x;
-  }
-}
-
-// NT: float4 column chunks per lane (Dp <= 128 * NT)
-template <typename T, int NT>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const Params p) {
-  extern __shared__ float4 smem4[];
-  const int Dp = (p.Dh + 3) & ~3;
-  const int ld = Dp + 4;
-  float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][ld]
-  float* ks = qs + kBQ * ld;                     // [kBK][ld]
-  float* vs = ks + kBK * ld;                     // [kBK][ld]
-
-  const int bh = blockIdx.x;                     // b * Hq + h
-  const int b = bh / p.Hq, h = bh - b * p.Hq;
-  const int kvh = h / p.g;                       // (b*Hq + h) // g, per b
-  const int q0 = blockIdx.y * kBQ;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const T* qsrc = static_cast<const T*>(p.q) + b * p.qsb + h * p.qsh;
-  const T* ksrc = static_cast<const T*>(p.k) + b * p.ksb + kvh * p.ksh;
-  const T* vsrc = static_cast<const T*>(p.v) + b * p.vsb + kvh * p.vsh;
-
-  stage(qs, ld, qsrc, p.qss, q0, kBQ, p.Sq, p.Dh, Dp, p.scale);
-
-  // the key range any row of this tile can see
-  const int qpos0 = q0 + p.q_offset;
-  int k_hi = p.Skv;
-  if (p.causal) k_hi = min(k_hi, max(qpos0 + kBQ, 0));
-  int k_lo = 0;
-  if (p.window > 0) k_lo = max(0, qpos0 - p.window + 1);
-
-  const int r0 = warp * kRows;
-  float m[kRows], l[kRows];
-  float4 acc[kRows][NT];
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNeg;
-    l[r] = 0.f;
-#pragma unroll
-    for (int t = 0; t < NT; ++t) acc[r][t] = make_float4(0.f, 0.f, 0.f, 0.f);
-  }
-
-  for (int kt = (k_lo / kBK) * kBK; kt < k_hi; kt += kBK) {
-    __syncthreads();  // the previous tile's readers are done
-    stage(ks, ld, ksrc, p.kss, kt, kBK, p.Skv, p.Dh, Dp, 1.f);
-    stage(vs, ld, vsrc, p.vss, kt, kBK, p.Skv, p.Dh, Dp, 1.f);
-    __syncthreads();
-
-    // lane = key: scores against the warp's rows, f32 fmaf over Dh
-    float s[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r] = 0.f;
-    const float4* krow = reinterpret_cast<const float4*>(ks + lane * ld);
-    for (int c = 0; c < (Dp >> 2); ++c) {
-      const float4 kk = krow[c];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qq =
-            reinterpret_cast<const float4*>(qs + (r0 + r) * ld)[c];
-        s[r] = fmaf(qq.x, kk.x, s[r]);
-        s[r] = fmaf(qq.y, kk.y, s[r]);
-        s[r] = fmaf(qq.z, kk.z, s[r]);
-        s[r] = fmaf(qq.w, kk.w, s[r]);
-      }
-    }
-
-    const int kpos = kt + lane;
-    float pr[kRows];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int qpos = qpos0 + r0 + r;
-      float x = s[r];
-      if (p.has_softcap) x = p.softcap * tanhf(x / p.softcap);
-      bool ok = kpos < p.Skv;
-      if (p.causal) ok = ok && kpos <= qpos;
-      if (p.window > 0) ok = ok && kpos > qpos - p.window;
-      x = ok ? x : kNeg;
-      const float m_new = fmaxf(m[r], warp_max(x));
-      const float pv = ok ? expf(x - m_new) : 0.f;
-      const float corr = expf(m[r] - m_new);
-      l[r] = l[r] * corr + rt::warp_sum(pv);
-      m[r] = m_new;
-      pr[r] = pv;
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        acc[r][t].x *= corr;
-        acc[r][t].y *= corr;
-        acc[r][t].z *= corr;
-        acc[r][t].w *= corr;
-      }
-    }
-
-    // acc += P.V over the tile's keys, lane-owned column chunks
-    for (int j = 0; j < kBK; ++j) {
-      float4 vv[NT];
-#pragma unroll
-      for (int t = 0; t < NT; ++t) {
-        const int c = lane + 32 * t;
-        vv[t] = c < (Dp >> 2)
-                    ? reinterpret_cast<const float4*>(vs + j * ld)[c]
-                    : make_float4(0.f, 0.f, 0.f, 0.f);
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float pj = __shfl_sync(rt::kFull, pr[r], j);
-#pragma unroll
-        for (int t = 0; t < NT; ++t) {
-          acc[r][t].x = fmaf(pj, vv[t].x, acc[r][t].x);
-          acc[r][t].y = fmaf(pj, vv[t].y, acc[r][t].y);
-          acc[r][t].z = fmaf(pj, vv[t].z, acc[r][t].z);
-          acc[r][t].w = fmaf(pj, vv[t].w, acc[r][t].w);
-        }
-      }
-    }
-  }
-
-  T* out = static_cast<T*>(p.o) + static_cast<long long>(bh) * p.Sq * p.Dh;
-#pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + r0 + r;
-    if (row >= p.Sq) continue;
-    const float denom = fmaxf(l[r], 1e-30f);
-#pragma unroll
-    for (int t = 0; t < NT; ++t) {
-      const int c = 4 * (lane + 32 * t);
-      T* dst = out + static_cast<long long>(row) * p.Dh + c;
-      const float4 a = acc[r][t];
-      if (c + 0 < p.Dh) dst[0] = from_f<T>(a.x / denom);
-      if (c + 1 < p.Dh) dst[1] = from_f<T>(a.y / denom);
-      if (c + 2 < p.Dh) dst[2] = from_f<T>(a.z / denom);
-      if (c + 3 < p.Dh) dst[3] = from_f<T>(a.w / denom);
-    }
-  }
-}
-
-template <typename T, int NT>
-int launch(const Params& p, int BH, int Sq, size_t smem, cudaStream_t st) {
-  cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(BH, (Sq + kBQ - 1) / kBQ);
-  flash_kernel<T, NT><<<grid, kThreads, smem, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Dynamic shared memory of one block of the CUDA-core body
-// (kernels/flash_attention.py::cuda_cores_smem mirrors it): the query tile
-// and one K and one V tile, rows of Dh rounded up to 4 plus 4 floats.
-size_t cuda_cores_smem(int Dh) {
-  const int Dp = (Dh + 3) & ~3;
-  return static_cast<size_t>(kBQ + 2 * kBK) * (Dp + 4) * sizeof(float);
-}
-
-template <typename T>
-int dispatch(const Params& p, int BH, int Sq, size_t smem, cudaStream_t st) {
-  if ((p.Dh + 3) / 4 <= 32) return launch<T, 1>(p, BH, Sq, smem, st);
-  return launch<T, 2>(p, BH, Sq, smem, st);
-}
-
 }  // namespace
 
-// q [B, Hq, Sq, Dh], k / v [B, Hkv, Skv, Dh] (any batch, head and position
-// strides, in elements; the last dim dense), all of one dtype (0 f32,
-// 1 bf16, 2 f16) -> o [B, Hq, Sq, Dh] dense, in that dtype. Dh <= 256,
-// Hq % Hkv == 0; window <= 0 means none; softcap applies when has_softcap.
-RT_API int rt_flash_attention(const void* q, const void* k, const void* v,
-                              void* o, int dtype, int B, int Hq, int Hkv,
-                              int Sq, int Skv, int Dh, long long qsb,
-                              long long qsh, long long qss, long long ksb,
-                              long long ksh, long long kss, long long vsb,
-                              long long vsh, long long vss, float scale,
-                              int causal, int window, int has_softcap,
-                              float softcap, int q_offset, void* stream) {
-  Params p{q,   k,   v,   o,   Hq,  Hq / Hkv, Sq,     Skv,
-           Dh,  qsb, qsh, qss, ksb, ksh,      kss,    vsb,
-           vsh, vss, scale, causal, window, has_softcap, softcap, q_offset};
-  const size_t smem = cuda_cores_smem(Dh);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case kF32: return dispatch<float>(p, B * Hq, Sq, smem, st);
-    case kBF16: return dispatch<__nv_bfloat16>(p, B * Hq, Sq, smem, st);
-    case kF16: return dispatch<__half>(p, B * Hq, Sq, smem, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // ---------------------------------------------------------------------------
-// The tensor-core body: bf16 / f16 inputs with Dh % 16 == 0 (Dh <= 256).
+// The tensor-core body: bf16 / f16 inputs, any head dim up to 256.
 //
 // One warpgroup (128 threads) per 64-row query tile. Rows are either 64
 // positions of one head, or -- when Sq <= 32 -- the Sq positions of P
 // query heads that share one kv head (P = min(g, 64 / Sq)), so that a GQA
 // group reads its K/V tile once (the embed path: g = 2, S = 32, 64 rows).
-// Q (once) and each 32-key K/V tile come by TMA into 128-byte-swizzled
-// shared memory, Dh split into 64-column chunks (a head dim that is not a
-// multiple of 64 is zero-filled to DP by the tensor map); K/V go into a
-// ring of two stages on mbarriers, so tile j+2's copy runs under tile j+1's
-// products. A block needs 48 KB at Dh 128 (96 KB at 256), so four share an
-// SM and one block's softmax runs under another's wgmmas. S = Q.K^T is a
-// wgmma with f32 accumulation (the products of 16-bit values are exact);
+// Q (once) and each 32-key K/V tile come into 128-byte-swizzled shared
+// memory, Dh split into 64-column chunks and zero-filled to DP, by TMA or
+// by the cp.async loader (load_tile); K/V go into a ring of two stages, so
+// tile j+2's copy runs under tile j+1's products. A block needs 48 KB at
+// Dh 128 (96 KB at 256), so four share an SM and one block's softmax runs
+// under another's wgmmas. S = Q.K^T is a wgmma with f32 accumulation (the
+// products of 16-bit values are exact), k16 steps past Dh skipped;
 // the scale, softcap, masks and the online softmax (exp2 of
 // log2(e)-scaled logits) work on the f32 fragment in registers, row
 // statistics over the 4 threads of a quad; a masked logit is -inf, so a
@@ -314,7 +97,8 @@ RT_API int rt_flash_attention(const void* q, const void* k, const void* v,
 // from registers (V's tile as loaded, MN-major): 16 bits of p (22 for
 // f16) where one rounding would keep 8, at 1.5x the tensor-core work. The
 // output, acc / max(l, 1e-30) in T, is staged in shared memory and written
-// in 16-byte stores.
+// in 16-byte stores where a row of Dh values is a multiple of 16 bytes,
+// else in the widest pieces it is a multiple of (store_rows).
 
 namespace tc {
 
@@ -333,6 +117,19 @@ struct Params {
   int causal, window, has_softcap;
   float softcap;
   int q_offset;
+};
+
+// The cp.async loader's inputs, a kernel parameter of their own (the TMA
+// loader reads q, k and v through its tensor maps and never touches
+// them): pointers, byte strides of batch, head and position, and each
+// tensor's copy width in bytes (16, 8, 4 or 2), which divides its pointer
+// and every stride it steps.
+struct Src {
+  const uint8_t* q;
+  const uint8_t* k;
+  const uint8_t* v;
+  long long qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss;
+  int uq, uk, uv;
 };
 
 template <typename T>
@@ -372,6 +169,143 @@ __device__ __forceinline__ KeyTiles key_tiles(const Params& p, int q0) {
   t.kt0 = (k_lo / kKeys) * kKeys;
   t.ntiles = k_hi > t.kt0 ? (k_hi - t.kt0 + kKeys - 1) / kKeys : 0;
   return t;
+}
+
+// ---- the cp.async loader ---------------------------------------------------
+
+// U bytes from src to dst, the first n of them read and the rest written as
+// zeros: cp.async (16 bytes through L2, 4 and 8 through L1), or at U = 2 a
+// plain load and store, which cp.async has no size for
+template <int U>
+__device__ __forceinline__ void copy_piece(uint8_t* dst, const uint8_t* src,
+                                           int n) {
+  if constexpr (U == 16) {
+    sm90::cp_async16(dst, src, n);
+  } else if constexpr (U == 2) {
+    *reinterpret_cast<uint16_t*>(dst) =
+        n ? __ldg(reinterpret_cast<const unsigned short*>(src))
+          : static_cast<unsigned short>(0);
+  } else {
+    sm90::cp_async_ca<U>(dst, src, n);
+  }
+}
+
+// `rows` rows of a tile into `dst` byte for byte as TMA's 128-byte swizzle
+// writes them: NC chunks of 128-byte rows (chunk c at c * rows * 128, its
+// 16-byte unit u of row r at swz128(r, u)), row r's bytes [0, row_bytes)
+// from row_of(r) and zeros past them up to NC * 128 bytes; a row
+// row_of gives as nullptr (a key past Skv, a query past Sq) all zeros.
+// Consecutive threads take consecutive U-byte pieces of a row. `any`: a
+// U-aligned global address for a piece that reads nothing.
+template <int NC, int U, typename RowOf>
+__device__ __forceinline__ void load_rows(uint8_t* dst, int rows,
+                                          int row_bytes, const uint8_t* any,
+                                          RowOf row_of) {
+  constexpr int kPieces = NC * 128 / U;          // pieces of a row
+  for (int e = threadIdx.x; e < rows * kPieces; e += kThreads) {
+    const int r = e / kPieces, ob = (e - r * kPieces) * U;
+    const uint8_t* src = row_of(r);
+    const int n = src == nullptr ? 0 : min(max(row_bytes - ob, 0), U);
+    copy_piece<U>(dst + (ob >> 7) * rows * 128 +
+                      sm90::swz128(r, (ob >> 4) & 7) + (ob & 15),
+                  n ? src + ob : any, n);
+  }
+}
+
+// load_rows at the copy width u of the tensor the rows come from
+template <int NC, typename RowOf>
+__device__ __forceinline__ void load_tile(uint8_t* dst, int rows,
+                                          int row_bytes, int u,
+                                          const uint8_t* any, RowOf row_of) {
+  switch (u) {
+    case 16: load_rows<NC, 16>(dst, rows, row_bytes, any, row_of); break;
+    case 8: load_rows<NC, 8>(dst, rows, row_bytes, any, row_of); break;
+    case 4: load_rows<NC, 4>(dst, rows, row_bytes, any, row_of); break;
+    default: load_rows<NC, 2>(dst, rows, row_bytes, any, row_of); break;
+  }
+}
+
+// A tile of kKeys keys from kt of K's or V's rows (`base`: this batch
+// and kv head, `ss` bytes a key), keys past Skv zero
+template <int NC>
+__device__ __forceinline__ void load_keys(uint8_t* dst, const uint8_t* base,
+                                          long long ss, int u, int kt,
+                                          int Skv, int row_bytes) {
+  load_tile<NC>(dst, kKeys, row_bytes, u, base,
+                [=](int r) -> const uint8_t* {
+                  return kt + r < Skv ? base + (kt + r) * ss : nullptr;
+                });
+}
+
+// The 64-row query tile: row r is head h0 + r / RQ (of the tile's P, and
+// of the `heads` the GQA group has from h0 on), position q0 + r % RQ;
+// `base` is this batch's q, heads sh and positions ss bytes apart. Rows
+// past P * RQ, positions past Sq and heads past the group are zero.
+template <int NC>
+__device__ __forceinline__ void load_queries(uint8_t* dst, const uint8_t* base,
+                                             long long sh, long long ss,
+                                             int u, int h0, int q0, int P,
+                                             int RQ, int Sq, int heads,
+                                             int row_bytes) {
+  load_tile<NC>(dst, kRows, row_bytes, u, base,
+                [=](int r) -> const uint8_t* {
+                  const int hd = r / RQ, pos = q0 + r - hd * RQ;
+                  if (hd >= P || pos >= Sq || hd >= heads) return nullptr;
+                  return base + (h0 + hd) * sh + pos * ss;
+                });
+}
+
+// ---- the epilogue's stores -------------------------------------------------
+
+template <int U>
+struct Piece;
+template <> struct Piece<16> { using type = uint4; };
+template <> struct Piece<8> { using type = uint2; };
+template <> struct Piece<4> { using type = uint32_t; };
+template <> struct Piece<2> { using type = uint16_t; };
+
+// The staged rows of one query tile (row r at stage + r * ld bytes, ld a
+// multiple of 16) to out [B * Hq * Sq rows of row_bytes], in U-byte
+// stores: tile row r is head h0 + r / RQ, position q0 + r % RQ, and is
+// written where the position is below Sq and the head one of the `heads`
+// the GQA group has from h0 on.
+template <int U>
+__device__ __forceinline__ void store_rows_u(uint8_t* out,
+                                             const uint8_t* stage, int ld,
+                                             int rows, int row_bytes,
+                                             long long row0, int RQ, int q0,
+                                             int Sq, int heads) {
+  using V = typename Piece<U>::type;
+  const int per = row_bytes / U;
+  for (int e = threadIdx.x; e < rows * per; e += kThreads) {
+    const int r = e / per, c = e - r * per;
+    const int hd = r / RQ, pos = q0 + r % RQ;
+    if (pos >= Sq || hd >= heads) continue;
+    const long long row = row0 + static_cast<long long>(hd) * Sq + pos;
+    *reinterpret_cast<V*>(out + row * row_bytes + c * U) =
+        *reinterpret_cast<const V*>(stage + r * ld + c * U);
+  }
+}
+
+// store_rows_u at the widest U that row_bytes is a multiple of: out is
+// dense and 16-byte aligned, so every row starts on such a multiple.
+// row0: the row of out of head h0, position 0.
+__device__ __forceinline__ void store_rows(uint8_t* out, const uint8_t* stage,
+                                           int ld, int rows, int row_bytes,
+                                           long long row0, int RQ, int q0,
+                                           int Sq, int heads) {
+  if (row_bytes % 16 == 0)
+    store_rows_u<16>(out, stage, ld, rows, row_bytes, row0, RQ, q0, Sq,
+                     heads);
+  else if (row_bytes % 8 == 0)
+    store_rows_u<8>(out, stage, ld, rows, row_bytes, row0, RQ, q0, Sq,
+                    heads);
+  else if (row_bytes % 4 == 0)
+    store_rows_u<4>(out, stage, ld, rows, row_bytes, row0, RQ, q0, Sq,
+                    heads);
+  else
+    store_rows_u<2>(out, stage, ld, rows, row_bytes, row0, RQ, q0, Sq,
+                    heads);
 }
 
 // The online softmax over the S fragment of the key tile at kt (logits
@@ -436,12 +370,14 @@ __device__ __forceinline__ void online_softmax(float (&s)[kKeys / 2],
   }
 }
 
-// DP: Dh rounded up to a multiple of 64
-template <typename T, int DP>
+// DP: Dh rounded up to a multiple of 64; kTma: the loader (TMA, or
+// cp.async)
+template <typename T, int DP, bool kTma>
 __global__ void __launch_bounds__(kThreads)
 flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
-                const __grid_constant__ CUtensorMap vmap, const Params p) {
+                const __grid_constant__ CUtensorMap vmap, const Params p,
+                const Src src) {
   constexpr int NC = DP / 64;                    // 64-column chunks
   constexpr uint32_t kQBytes = NC * kRows * 128;  // Q's buffer
   constexpr uint32_t kKVBytes = NC * kKeys * 128;   // one of K or V
@@ -468,28 +404,51 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
   const KeyTiles kr = key_tiles(p, q0);          // the keys it can see
   const int kt0 = kr.kt0, ntiles = kr.ntiles;
 
-  if (tid == 0) {
-    sm90::mbar_init(bar_q, 1);
-    sm90::mbar_init(&full[0], 1);
-    sm90::mbar_init(&full[1], 1);
-    sm90::fence_mbar_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // the Q box is P heads x RQ positions: P * RQ of the 64 rows
-    sm90::mbar_arrive_expect_tx(bar_q, NC * p.P * p.RQ * 128);
-    for (int c = 0; c < NC; ++c)
-      sm90::tma_load_4d(qs + c * kRows * 128, &qmap, bar_q, 64 * c, q0, h0,
-                       b);
-    for (int s = 0; s < 2 && s < ntiles; ++s) {
-      uint8_t* ks = kv + 2 * s * kKVBytes;
-      sm90::mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
-      for (int c = 0; c < NC; ++c) {
-        sm90::tma_load_4d(ks + c * kKeys * 128, &kmap, &full[s], 64 * c,
-                         kt0 + s * kKeys, kvh, b);
-        sm90::tma_load_4d(ks + kKVBytes + c * kKeys * 128, &vmap, &full[s],
-                         64 * c, kt0 + s * kKeys, kvh, b);
+  // the cp.async loader: K and V's rows of this (batch, kv head); every
+  // thread issues its pieces of a tile, and each stage's copies are one
+  // commit group
+  const int row_bytes = p.Dh * static_cast<int>(sizeof(T));
+  const uint8_t* kg = src.k + b * src.ksb + kvh * src.ksh;
+  const uint8_t* vg = src.v + b * src.vsb + kvh * src.vsh;
+
+  if constexpr (kTma) {
+    if (tid == 0) {
+      sm90::mbar_init(bar_q, 1);
+      sm90::mbar_init(&full[0], 1);
+      sm90::mbar_init(&full[1], 1);
+      sm90::fence_mbar_init();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      // the Q box is P heads x RQ positions: P * RQ of the 64 rows
+      sm90::mbar_arrive_expect_tx(bar_q, NC * p.P * p.RQ * 128);
+      for (int c = 0; c < NC; ++c)
+        sm90::tma_load_4d(qs + c * kRows * 128, &qmap, bar_q, 64 * c, q0,
+                          h0, b);
+      for (int s = 0; s < 2 && s < ntiles; ++s) {
+        uint8_t* ks = kv + 2 * s * kKVBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
+        for (int c = 0; c < NC; ++c) {
+          sm90::tma_load_4d(ks + c * kKeys * 128, &kmap, &full[s], 64 * c,
+                            kt0 + s * kKeys, kvh, b);
+          sm90::tma_load_4d(ks + kKVBytes + c * kKeys * 128, &vmap,
+                            &full[s], 64 * c, kt0 + s * kKeys, kvh, b);
+        }
       }
+    }
+  } else {
+    // groups: Q with tile 0, then tile 1 (empty where there is none)
+    load_queries<NC>(qs, src.q + b * src.qsb, src.qsh, src.qss, src.uq, h0,
+                     q0, p.P, p.RQ, p.Sq, p.g - tg * p.P, row_bytes);
+    for (int s = 0; s < 2; ++s) {
+      if (s < ntiles) {
+        uint8_t* ks = kv + 2 * s * kKVBytes;
+        load_keys<NC>(ks, kg, src.kss, src.uk, kt0 + s * kKeys, p.Skv,
+                      row_bytes);
+        load_keys<NC>(ks + kKVBytes, vg, src.vss, src.uv, kt0 + s * kKeys,
+                      p.Skv, row_bytes);
+      }
+      sm90::cp_async_commit();
     }
   }
 
@@ -507,13 +466,23 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int e = 0; e < kOAcc; ++e) o[e] = 0.f;
 
-  sm90::mbar_wait(bar_q, 0);
+  if constexpr (kTma) sm90::mbar_wait(bar_q, 0);
   const uint32_t qaddr = sm90::smem_u32(qs);
 
   for (int j = 0; j < ntiles; ++j) {
     const int s = j & 1;
     const int kt = kt0 + j * kKeys;
-    sm90::mbar_wait(&full[s], (j >> 1) & 1);
+    if constexpr (kTma) {
+      sm90::mbar_wait(&full[s], (j >> 1) & 1);
+    } else {
+      // tile j (and at j = 0 Q) has landed; tile j + 1 may be in flight.
+      // cp.async writes through the generic proxy, wgmma reads through
+      // the async one: each thread fences its own copies, then the block
+      // meets
+      sm90::cp_async_wait<1>();
+      sm90::fence_proxy_async();
+      __syncthreads();
+    }
     const uint32_t kaddr = sm90::smem_u32(kv + 2 * s * kKVBytes);
     const uint32_t vaddr = kaddr + kKVBytes;
 
@@ -573,20 +542,33 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // every warp is done with stage s: refill it with tile j + 2
     __syncthreads();
-    if (tid == 0 && j + 2 < ntiles) {
-      uint8_t* ks = kv + 2 * s * kKVBytes;
-      sm90::mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
-      for (int c = 0; c < NC; ++c) {
-        sm90::tma_load_4d(ks + c * kKeys * 128, &kmap, &full[s], 64 * c,
-                         kt + 2 * kKeys, kvh, b);
-        sm90::tma_load_4d(ks + kKVBytes + c * kKeys * 128, &vmap, &full[s],
-                         64 * c, kt + 2 * kKeys, kvh, b);
+    if constexpr (kTma) {
+      if (tid == 0 && j + 2 < ntiles) {
+        uint8_t* ks = kv + 2 * s * kKVBytes;
+        sm90::mbar_arrive_expect_tx(&full[s], 2 * kKVBytes);
+        for (int c = 0; c < NC; ++c) {
+          sm90::tma_load_4d(ks + c * kKeys * 128, &kmap, &full[s], 64 * c,
+                            kt + 2 * kKeys, kvh, b);
+          sm90::tma_load_4d(ks + kKVBytes + c * kKeys * 128, &vmap,
+                            &full[s], 64 * c, kt + 2 * kKeys, kvh, b);
+        }
       }
+    } else {
+      if (j + 2 < ntiles) {
+        uint8_t* ks = kv + 2 * s * kKVBytes;
+        load_keys<NC>(ks, kg, src.kss, src.uk, kt + 2 * kKeys, p.Skv,
+                      row_bytes);
+        load_keys<NC>(ks + kKVBytes, vg, src.vss, src.uv, kt + 2 * kKeys,
+                      p.Skv, row_bytes);
+      }
+      sm90::cp_async_commit();
     }
   }
 
   // out = acc / max(l, 1e-30) in T, staged row-major in shared memory
-  // (the Q and K/V buffers are free: every copy was consumed)
+  // (the Q and K/V buffers are free: every copy was consumed; with no key
+  // tile, cp.async copies of Q may still be landing)
+  if constexpr (!kTma) sm90::cp_async_wait<0>();
   __syncthreads();
   constexpr int ld = DP + 8;                     // T elements per row
   T* stage = reinterpret_cast<T*>(smem);
@@ -604,18 +586,10 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap qmap,
     }
   }
   __syncthreads();
-  T* out = static_cast<T*>(p.o);
-  const int rows = min(p.P * p.RQ, kRows);
-  const int c8 = p.Dh / 8;                       // 16-byte pieces per row
-  for (int e = tid; e < rows * c8; e += kThreads) {
-    const int r = e / c8, c = e - r * c8;
-    const int hd = r / p.RQ, pos = q0 + r % p.RQ;
-    if (pos >= p.Sq || tg * p.P + hd >= p.g) continue;
-    const long long row =
-        (static_cast<long long>(b) * p.Hq + h0 + hd) * p.Sq + pos;
-    *reinterpret_cast<uint4*>(out + row * p.Dh + 8 * c) =
-        *reinterpret_cast<const uint4*>(stage + r * ld + 8 * c);
-  }
+  store_rows(static_cast<uint8_t*>(p.o), smem,
+             ld * static_cast<int>(sizeof(T)), min(p.P * p.RQ, kRows),
+             row_bytes, (static_cast<long long>(b) * p.Hq + h0) * p.Sq, p.RQ,
+             q0, p.Sq, p.g - tg * p.P);
 }
 
 // shared memory of one block: 1 KB for alignment, Q, two K/V stages and
@@ -627,10 +601,10 @@ constexpr size_t smem_bytes() {
 
 constexpr int kMaxDevices = 64;
 
-template <typename T, int DP>
+template <typename T, int DP, bool kTma>
 int launch(const CUtensorMap& qm, const CUtensorMap& km,
-           const CUtensorMap& vm, const Params& p, dim3 grid,
-           cudaStream_t st) {
+           const CUtensorMap& vm, const Params& p, const Src& src,
+           dim3 grid, cudaStream_t st) {
   constexpr size_t smem = smem_bytes<DP>();
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -638,25 +612,34 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidValue);
   static bool opted_in[kMaxDevices] = {};   // once a device
   if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_tc_kernel<T, DP>,
+    err = cudaFuncSetAttribute(flash_tc_kernel<T, DP, kTma>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in[dev] = true;
   }
-  flash_tc_kernel<T, DP><<<grid, kThreads, smem, st>>>(qm, km, vm, p);
+  flash_tc_kernel<T, DP, kTma><<<grid, kThreads, smem, st>>>(qm, km, vm, p,
+                                                             src);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <typename T, int DP>
+int launch_by(const CUtensorMap& qm, const CUtensorMap& km,
+              const CUtensorMap& vm, const Params& p, const Src& src,
+              dim3 grid, bool tma, cudaStream_t st) {
+  return tma ? launch<T, DP, true>(qm, km, vm, p, src, grid, st)
+             : launch<T, DP, false>(qm, km, vm, p, src, grid, st);
 }
 
 template <typename T>
 int dispatch(const CUtensorMap& qm, const CUtensorMap& km,
-             const CUtensorMap& vm, const Params& p, int DP, dim3 grid,
-             cudaStream_t st) {
+             const CUtensorMap& vm, const Params& p, const Src& src, int DP,
+             dim3 grid, bool tma, cudaStream_t st) {
   switch (DP) {
-    case 64: return launch<T, 64>(qm, km, vm, p, grid, st);
-    case 128: return launch<T, 128>(qm, km, vm, p, grid, st);
-    case 192: return launch<T, 192>(qm, km, vm, p, grid, st);
-    case 256: return launch<T, 256>(qm, km, vm, p, grid, st);
+    case 64: return launch_by<T, 64>(qm, km, vm, p, src, grid, tma, st);
+    case 128: return launch_by<T, 128>(qm, km, vm, p, src, grid, tma, st);
+    case 192: return launch_by<T, 192>(qm, km, vm, p, src, grid, tma, st);
+    case 256: return launch_by<T, 256>(qm, km, vm, p, src, grid, tma, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -664,14 +647,14 @@ int dispatch(const CUtensorMap& qm, const CUtensorMap& km,
 }  // namespace tc
 
 // ---------------------------------------------------------------------------
-// The 3xTF32 body: f32 inputs with Dh % 4 == 0 (Dh <= 256).
+// The 3xTF32 body: f32 inputs, any head dim up to 256.
 //
 // The tensor-core body's structure at f32: one warpgroup per 64-row query
 // tile, GQA heads packed into the tile at Sq <= 32 (the same plan, so a
 // group reads each K/V tile once), Q loaded once and each 32-key K/V tile
-// brought by TMA, Dh split into 32-column chunks of 128-byte rows in the
-// 128-byte swizzle (a head dim that is not a multiple of 64 is zero-filled
-// to DP by the tensor map), tiles above the diagonal or outside the window
+// brought by TMA or by the cp.async loader (tc::load_tile), Dh split into
+// 32-column chunks of 128-byte rows in the 128-byte swizzle and
+// zero-filled to DP, tiles above the diagonal or outside the window
 // skipped. Both products run on the tensor cores in full f32 precision,
 // as csrc/distance.cu computes its f32 dots: each value a is split into
 // big = cvt.rna.tf32(a) and small = a - big (exact in f32), and three tf32
@@ -710,7 +693,8 @@ int dispatch(const CUtensorMap& qm, const CUtensorMap& km,
 // are done, and V's as soon as its P.V products are, and the other block
 // on the SM runs while this one waits. X takes K's small half, then V^T's.
 // The output, acc / max(l, 1e-30), is staged in shared memory (rows padded
-// by 8 floats) and written in 16-byte stores.
+// by 8 floats) and written as the tensor-core body writes its own
+// (tc::store_rows).
 
 namespace x3 {
 
@@ -769,12 +753,12 @@ __device__ __forceinline__ void split_tile(uint8_t* tile, uint8_t* small,
   }
 }
 
-template <int DP>
+template <int DP, bool kTma>
 __global__ void __launch_bounds__(kThreads)
 flash_x3_kernel(const __grid_constant__ CUtensorMap qmap,
                 const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap,
-                const tc::Params p) {
+                const tc::Params p, const tc::Src src) {
   using Lay = Layout<DP>;
   constexpr int NC = DP / 32;                     // 32-column chunks
   constexpr uint32_t kTileTx = NC * kKeys * 128;  // bytes of a K or V tile
@@ -806,29 +790,50 @@ flash_x3_kernel(const __grid_constant__ CUtensorMap qmap,
   const tc::KeyTiles kr = tc::key_tiles(p, q0);  // the keys it can see
   const int kt0 = kr.kt0, ntiles = kr.ntiles;
 
-  if (tid == 0) {
-    sm90::mbar_init(bar_q, 1);
-    sm90::mbar_init(bar_k, 1);
-    sm90::mbar_init(bar_v, 1);
-    sm90::fence_mbar_init();
-  }
-  __syncthreads();
-  if (tid == 0) {
-    // the Q box is P heads x RQ positions: P * RQ of the 64 rows
-    sm90::mbar_arrive_expect_tx(bar_q, NC * p.P * p.RQ * 128);
-    for (int c = 0; c < NC; ++c)
-      sm90::tma_load_4d(qb + c * kRows * 128, &qmap, bar_q, 32 * c, q0, h0,
-                       b);
-    if (ntiles > 0) {
-      sm90::mbar_arrive_expect_tx(bar_k, kTileTx);
-      sm90::mbar_arrive_expect_tx(bar_v, kTileTx);
-      for (int c = 0; c < NC; ++c) {
-        sm90::tma_load_4d(kt_s + c * kKeys * 128, &kmap, bar_k, 32 * c, kt0,
-                         kvh, b);
-        sm90::tma_load_4d(vt_s + c * kKeys * 128, &vmap, bar_v, 32 * c, kt0,
-                         kvh, b);
+  // the cp.async loader: a tile of K's or V's keys from kt; each tile's
+  // copies are one commit group, in the order Q, K 0, V 0, then K j + 1
+  // and V j + 1 as iteration j frees their buffers, so the wait for the
+  // one before the newest (wait_group 1) is the wait for the tile needed
+  const int row_bytes = p.Dh * 4;
+  const uint8_t* kg = src.k + b * src.ksb + kvh * src.ksh;
+  const uint8_t* vg = src.v + b * src.vsb + kvh * src.vsh;
+
+  if constexpr (kTma) {
+    if (tid == 0) {
+      sm90::mbar_init(bar_q, 1);
+      sm90::mbar_init(bar_k, 1);
+      sm90::mbar_init(bar_v, 1);
+      sm90::fence_mbar_init();
+    }
+    __syncthreads();
+    if (tid == 0) {
+      // the Q box is P heads x RQ positions: P * RQ of the 64 rows
+      sm90::mbar_arrive_expect_tx(bar_q, NC * p.P * p.RQ * 128);
+      for (int c = 0; c < NC; ++c)
+        sm90::tma_load_4d(qb + c * kRows * 128, &qmap, bar_q, 32 * c, q0,
+                          h0, b);
+      if (ntiles > 0) {
+        sm90::mbar_arrive_expect_tx(bar_k, kTileTx);
+        sm90::mbar_arrive_expect_tx(bar_v, kTileTx);
+        for (int c = 0; c < NC; ++c) {
+          sm90::tma_load_4d(kt_s + c * kKeys * 128, &kmap, bar_k, 32 * c,
+                            kt0, kvh, b);
+          sm90::tma_load_4d(vt_s + c * kKeys * 128, &vmap, bar_v, 32 * c,
+                            kt0, kvh, b);
+        }
       }
     }
+  } else {
+    tc::load_queries<NC>(qb, src.q + b * src.qsb, src.qsh, src.qss, src.uq,
+                         h0, q0, p.P, p.RQ, p.Sq, p.g - tg * p.P,
+                         row_bytes);
+    sm90::cp_async_commit();
+    if (ntiles > 0)
+      tc::load_keys<NC>(kt_s, kg, src.kss, src.uk, kt0, p.Skv, row_bytes);
+    sm90::cp_async_commit();
+    if (ntiles > 0)
+      tc::load_keys<NC>(vt_s, vg, src.vss, src.uv, kt0, p.Skv, row_bytes);
+    sm90::cp_async_commit();
   }
 
   // this thread's two rows (accumulator rows r and r + 8)
@@ -848,7 +853,13 @@ flash_x3_kernel(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
   for (int e = 0; e < kOAcc; ++e) o[e] = 0.f;
 
-  sm90::mbar_wait(bar_q, 0);
+  // Q's pre-scale and split only once Q has landed
+  if constexpr (kTma) {
+    sm90::mbar_wait(bar_q, 0);
+  } else {
+    sm90::cp_async_wait<2>();
+    __syncthreads();
+  }
   split_tile<DP>(qb, qsm, kRows, min(p.P * p.RQ, kRows), p.scale);
   const uint32_t qa = sm90::smem_u32(qb), qsa = sm90::smem_u32(qsm);
   const uint32_t ka = sm90::smem_u32(kt_s), va = sm90::smem_u32(vt_s);
@@ -856,7 +867,14 @@ flash_x3_kernel(const __grid_constant__ CUtensorMap qmap,
 
   for (int j = 0; j < ntiles; ++j) {
     const int kt = kt0 + j * kKeys;
-    sm90::mbar_wait(bar_k, j & 1);
+    // (cp.async: K's tile, V's may be in flight; the split reads it
+    // through the generic proxy and writes what wgmma reads, then fences)
+    if constexpr (kTma) {
+      sm90::mbar_wait(bar_k, j & 1);
+    } else {
+      sm90::cp_async_wait<1>();
+      __syncthreads();
+    }
     split_tile<DP>(kt_s, xs, kKeys, kKeys, 1.f);
     sm90::fence_proxy_async();       // the splits' writes, seen by wgmma
     __syncthreads();
@@ -893,11 +911,18 @@ flash_x3_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // every warp is done with K's tile and X: refill K with tile j + 1
     __syncthreads();
-    if (tid == 0 && j + 1 < ntiles) {
-      sm90::mbar_arrive_expect_tx(bar_k, kTileTx);
-      for (int c = 0; c < NC; ++c)
-        sm90::tma_load_4d(kt_s + c * kKeys * 128, &kmap, bar_k, 32 * c,
-                         kt + kKeys, kvh, b);
+    if constexpr (kTma) {
+      if (tid == 0 && j + 1 < ntiles) {
+        sm90::mbar_arrive_expect_tx(bar_k, kTileTx);
+        for (int c = 0; c < NC; ++c)
+          sm90::tma_load_4d(kt_s + c * kKeys * 128, &kmap, bar_k, 32 * c,
+                            kt + kKeys, kvh, b);
+      }
+    } else {
+      if (j + 1 < ntiles)
+        tc::load_keys<NC>(kt_s, kg, src.kss, src.uk, kt + kKeys, p.Skv,
+                          row_bytes);
+      sm90::cp_async_commit();
     }
 
     // online softmax on the fragment: logits (already scaled) in log2
@@ -916,7 +941,12 @@ flash_x3_kernel(const __grid_constant__ CUtensorMap qmap,
     // lane = key, warp w reads pieces w and w + 4 (conflict-free), writes
     // V^T rows 4 * piece + e at column vkey (conflict-free: the lanes'
     // columns are a permutation of the 32)
-    sm90::mbar_wait(bar_v, j & 1);
+    if constexpr (kTma) {
+      sm90::mbar_wait(bar_v, j & 1);
+    } else {
+      sm90::cp_async_wait<1>();      // V's tile; K's next may be in flight
+      __syncthreads();
+    }
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       uint8_t* ch = vt_s + c * kKeys * 128;
@@ -973,16 +1003,25 @@ flash_x3_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // every warp is done with V's tile and X: refill V with tile j + 1
     __syncthreads();
-    if (tid == 0 && j + 1 < ntiles) {
-      sm90::mbar_arrive_expect_tx(bar_v, kTileTx);
-      for (int c = 0; c < NC; ++c)
-        sm90::tma_load_4d(vt_s + c * kKeys * 128, &vmap, bar_v, 32 * c,
-                         kt + kKeys, kvh, b);
+    if constexpr (kTma) {
+      if (tid == 0 && j + 1 < ntiles) {
+        sm90::mbar_arrive_expect_tx(bar_v, kTileTx);
+        for (int c = 0; c < NC; ++c)
+          sm90::tma_load_4d(vt_s + c * kKeys * 128, &vmap, bar_v, 32 * c,
+                            kt + kKeys, kvh, b);
+      }
+    } else {
+      if (j + 1 < ntiles)
+        tc::load_keys<NC>(vt_s, vg, src.vss, src.uv, kt + kKeys, p.Skv,
+                          row_bytes);
+      sm90::cp_async_commit();
     }
   }
 
   // out = acc / max(l, 1e-30), staged row-major in shared memory (Q's
-  // buffers are free: the last S product has read them)
+  // buffers are free: the last S product has read them; with no key
+  // tile, empty groups are all that may be pending)
+  if constexpr (!kTma) sm90::cp_async_wait<0>();
   __syncthreads();
   constexpr int ld = DP + 8;                     // floats per staged row
   float* stage = reinterpret_cast<float*>(smem);
@@ -999,18 +1038,10 @@ flash_x3_kernel(const __grid_constant__ CUtensorMap qmap,
           make_float2(o[4 * jj + 2 * i] * inv, o[4 * jj + 2 * i + 1] * inv);
   }
   __syncthreads();
-  float* out = static_cast<float*>(p.o);
-  const int rows = min(p.P * p.RQ, kRows);
-  const int c4 = p.Dh / 4;                       // 16-byte pieces per row
-  for (int e = tid; e < rows * c4; e += kThreads) {
-    const int r = e / c4, c = e - r * c4;
-    const int hd = r / p.RQ, pos = q0 + r % p.RQ;
-    if (pos >= p.Sq || tg * p.P + hd >= p.g) continue;
-    const long long row =
-        (static_cast<long long>(b) * p.Hq + h0 + hd) * p.Sq + pos;
-    *reinterpret_cast<float4*>(out + row * p.Dh + 4 * c) =
-        *reinterpret_cast<const float4*>(stage + r * ld + 4 * c);
-  }
+  tc::store_rows(static_cast<uint8_t*>(p.o), smem, ld * 4,
+                 min(p.P * p.RQ, kRows), row_bytes,
+                 (static_cast<long long>(b) * p.Hq + h0) * p.Sq, p.RQ, q0,
+                 p.Sq, p.g - tg * p.P);
 }
 
 static_assert(64 * (256 + 8) * 4 <= 2 * Layout<256>::kQ,
@@ -1021,10 +1052,10 @@ static_assert(2 * (tf32x3_smem<128>() + 1024) <= 233472,
 
 constexpr int kMaxDevices = 64;
 
-template <int DP>
+template <int DP, bool kTma>
 int launch(const CUtensorMap& qm, const CUtensorMap& km,
-           const CUtensorMap& vm, const tc::Params& p, dim3 grid,
-           cudaStream_t st) {
+           const CUtensorMap& vm, const tc::Params& p, const tc::Src& src,
+           dim3 grid, cudaStream_t st) {
   constexpr size_t smem = tf32x3_smem<DP>();
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
@@ -1032,24 +1063,33 @@ int launch(const CUtensorMap& qm, const CUtensorMap& km,
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidValue);
   static bool opted_in[kMaxDevices] = {};   // once a device
   if (!opted_in[dev]) {
-    err = cudaFuncSetAttribute(flash_x3_kernel<DP>,
+    err = cudaFuncSetAttribute(flash_x3_kernel<DP, kTma>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
     opted_in[dev] = true;
   }
-  flash_x3_kernel<DP><<<grid, kThreads, smem, st>>>(qm, km, vm, p);
+  flash_x3_kernel<DP, kTma><<<grid, kThreads, smem, st>>>(qm, km, vm, p,
+                                                          src);
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int DP>
+int launch_by(const CUtensorMap& qm, const CUtensorMap& km,
+              const CUtensorMap& vm, const tc::Params& p, const tc::Src& src,
+              dim3 grid, bool tma, cudaStream_t st) {
+  return tma ? launch<DP, true>(qm, km, vm, p, src, grid, st)
+             : launch<DP, false>(qm, km, vm, p, src, grid, st);
+}
+
 int dispatch(const CUtensorMap& qm, const CUtensorMap& km,
-             const CUtensorMap& vm, const tc::Params& p, int DP, dim3 grid,
-             cudaStream_t st) {
+             const CUtensorMap& vm, const tc::Params& p, const tc::Src& src,
+             int DP, dim3 grid, bool tma, cudaStream_t st) {
   switch (DP) {
-    case 64: return launch<64>(qm, km, vm, p, grid, st);
-    case 128: return launch<128>(qm, km, vm, p, grid, st);
-    case 192: return launch<192>(qm, km, vm, p, grid, st);
-    case 256: return launch<256>(qm, km, vm, p, grid, st);
+    case 64: return launch_by<64>(qm, km, vm, p, src, grid, tma, st);
+    case 128: return launch_by<128>(qm, km, vm, p, src, grid, tma, st);
+    case 192: return launch_by<192>(qm, km, vm, p, src, grid, tma, st);
+    case 256: return launch_by<256>(qm, km, vm, p, src, grid, tma, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1058,7 +1098,7 @@ int dispatch(const CUtensorMap& qm, const CUtensorMap& km,
 
 namespace {
 
-// The tensor maps of q, k and v for the TMA bodies: boxes of `inner`
+// The tensor maps of q, k and v for the TMA loader: boxes of `inner`
 // elements (128 bytes) by RQ positions by P heads for q, by tc::kKeys keys
 // for k and v; strides in elements.
 int qkv_maps(CUtensorMap* qm, CUtensorMap* km, CUtensorMap* vm,
@@ -1083,72 +1123,97 @@ int qkv_maps(CUtensorMap* qm, CUtensorMap* km, CUtensorMap* vm,
   return rc;
 }
 
+// Both bodies' entries take q [B, Hq, Sq, Dh], k / v [B, Hkv, Skv, Dh] of
+// one dtype, Dh <= 256, strides in elements (the last dim dense) -> o
+// dense, 16-byte aligned. The tiling comes from the wrapper's plan
+// (kernels/flash_attention.py::plan_tc): DP, P heads of RQ positions per
+// tile, and the grid (B * Hkv * ceil(g / P), ceil(Sq / RQ)). The loader
+// from loader_of: kLoadTma where every pointer is 16-byte aligned and
+// every stride a multiple of 16 bytes; kLoadCpAsync otherwise, with each
+// tensor's copy width uq, uk, uv (copy_bytes: 16, 8, 4 or 2 bytes,
+// dividing its pointer and every stride of a dim longer than 1).
+int run(int body, const void* q, const void* k, const void* v, void* o,
+        int B, int Hq, int Hkv, int Sq, int Skv, int Dh, long long qsb,
+        long long qsh, long long qss, long long ksb, long long ksh,
+        long long kss, long long vsb, long long vsh, long long vss,
+        float scale, int causal, int window, int has_softcap, float softcap,
+        int q_offset, int DP, int P, int RQ, int grid_x, int grid_y,
+        int loader, int uq, int uk, int uv, void* stream) {
+  if (loader != kLoadTma && loader != kLoadCpAsync)
+    return cudaErrorInvalidValue;
+  const int es = body == kF32 ? 4 : 2;
+  const int g = Hq / Hkv;
+  const tc::Params p{o, Hq, Hkv, g, Sq, Skv, Dh, P, RQ, (g + P - 1) / P,
+                     scale, causal, window, has_softcap, softcap, q_offset};
+  const tc::Src src{static_cast<const uint8_t*>(q),
+                    static_cast<const uint8_t*>(k),
+                    static_cast<const uint8_t*>(v),
+                    qsb * es, qsh * es, qss * es, ksb * es, ksh * es,
+                    kss * es, vsb * es, vsh * es, vss * es, uq, uk, uv};
+  alignas(64) CUtensorMap qm, km, vm;
+  const bool tma = loader == kLoadTma;
+  if (tma) {
+    const CUtensorMapDataType ty =
+        body == kF32    ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+        : body == kBF16 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+    const int rc = qkv_maps(&qm, &km, &vm, ty, es, 128 / es, q, k, v, B, Hq,
+                            Hkv, Sq, Skv, Dh, qsb, qsh, qss, ksb, ksh, kss,
+                            vsb, vsh, vss, P, RQ);
+    if (rc != 0) return rc;
+  } else {
+    memset(&qm, 0, sizeof(qm));   // passed, never read
+    km = vm = qm;
+  }
+  const dim3 grid(grid_x, grid_y);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (body == kF32)
+    return x3::dispatch(qm, km, vm, p, src, DP, grid, tma, st);
+  if (body == kBF16)
+    return tc::dispatch<__nv_bfloat16>(qm, km, vm, p, src, DP, grid, tma,
+                                       st);
+  return tc::dispatch<__half>(qm, km, vm, p, src, DP, grid, tma, st);
+}
+
 }  // namespace
 
-// The tensor-core body: q [B, Hq, Sq, Dh], k / v [B, Hkv, Skv, Dh] of bf16
-// (dtype 1) or f16 (2), Dh % 16 == 0 and <= 256, strides in elements (the
-// last dim dense; every other stride a multiple of 16 bytes, the pointers
-// 16-byte aligned) -> o dense. The tiling comes from the wrapper's plan
-// (kernels/flash_attention.py::plan_tc): DP, P heads of RQ positions per
-// tile, and the grid (B * Hkv * ceil(g / P), ceil(Sq / RQ)).
+// The tensor-core body: bf16 (dtype 1) or f16 (2) q, k and v, as run()
+// takes them.
 RT_API int rt_flash_attention_tc(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Hq, int Hkv, int Sq, int Skv, int Dh, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, float scale, int causal, int window,
     int has_softcap, float softcap, int q_offset, int DP, int P, int RQ,
-    int grid_x, int grid_y, void* stream) {
+    int grid_x, int grid_y, int loader, int uq, int uk, int uv,
+    void* stream) {
   if (dtype != kBF16 && dtype != kF16) return cudaErrorInvalidValue;
-  const int g = Hq / Hkv;
-  tc::Params p{o, Hq, Hkv, g, Sq, Skv, Dh, P, RQ, (g + P - 1) / P, scale,
-               causal, window, has_softcap, softcap, q_offset};
-  const CUtensorMapDataType ty = dtype == kBF16
-                                     ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
-                                     : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  alignas(64) CUtensorMap qm, km, vm;
-  const int rc = qkv_maps(&qm, &km, &vm, ty, 2, 64, q, k, v, B, Hq, Hkv, Sq,
-                          Skv, Dh, qsb, qsh, qss, ksb, ksh, kss, vsb, vsh,
-                          vss, P, RQ);
-  if (rc != 0) return rc;
-  const dim3 grid(grid_x, grid_y);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kBF16)
-    return tc::dispatch<__nv_bfloat16>(qm, km, vm, p, DP, grid, st);
-  return tc::dispatch<__half>(qm, km, vm, p, DP, grid, st);
+  return run(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, Dh, qsb, qsh, qss, ksb,
+             ksh, kss, vsb, vsh, vss, scale, causal, window, has_softcap,
+             softcap, q_offset, DP, P, RQ, grid_x, grid_y, loader, uq, uk,
+             uv, stream);
 }
 
-// The 3xTF32 body: f32 q, k and v (dtype 0), Dh % 4 == 0 and <= 256, the
-// strides and pointers as the tensor-core body takes them, the tiling from
-// the same plan (kernels/flash_attention.py::plan_tc with the f32 dtype).
+// The 3xTF32 body: f32 q, k and v (dtype 0), as run() takes them.
 RT_API int rt_flash_attention_tf32x3(
     const void* q, const void* k, const void* v, void* o, int dtype, int B,
     int Hq, int Hkv, int Sq, int Skv, int Dh, long long qsb, long long qsh,
     long long qss, long long ksb, long long ksh, long long kss, long long vsb,
     long long vsh, long long vss, float scale, int causal, int window,
     int has_softcap, float softcap, int q_offset, int DP, int P, int RQ,
-    int grid_x, int grid_y, void* stream) {
+    int grid_x, int grid_y, int loader, int uq, int uk, int uv,
+    void* stream) {
   if (dtype != kF32) return cudaErrorInvalidValue;
-  const int g = Hq / Hkv;
-  tc::Params p{o, Hq, Hkv, g, Sq, Skv, Dh, P, RQ, (g + P - 1) / P, scale,
-               causal, window, has_softcap, softcap, q_offset};
-  alignas(64) CUtensorMap qm, km, vm;
-  const int rc = qkv_maps(&qm, &km, &vm, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
-                          32, q, k, v, B, Hq, Hkv, Sq, Skv, Dh, qsb, qsh, qss,
-                          ksb, ksh, kss, vsb, vsh, vss, P, RQ);
-  if (rc != 0) return rc;
-  return x3::dispatch(qm, km, vm, p, DP, dim3(grid_x, grid_y),
-                      static_cast<cudaStream_t>(stream));
+  return run(dtype, q, k, v, o, B, Hq, Hkv, Sq, Skv, Dh, qsb, qsh, qss, ksb,
+             ksh, kss, vsb, vsh, vss, scale, causal, window, has_softcap,
+             softcap, q_offset, DP, P, RQ, grid_x, grid_y, loader, uq, uk,
+             uv, stream);
 }
 
-// The dynamic shared memory of one block of each body, exported for the
-// wrapper's Python mirrors (kernels/flash_attention.py::cuda_cores_smem,
-// tc_smem, tf32x3_smem): the CUDA-core body's at head dim Dh, the
-// tensor-core and 3xTF32 bodies' at DP (Dh rounded up to 64; -1 for a DP
-// they have no instantiation of).
-RT_API long long rt_flash_smem(int Dh) {
-  return static_cast<long long>(cuda_cores_smem(Dh));
-}
-
+// The dynamic shared memory of one block of each body at DP (Dh rounded up
+// to 64; -1 for a DP it has no instantiation of), either loader, exported
+// for the wrapper's Python mirrors (kernels/flash_attention.py::tc_smem,
+// tf32x3_smem).
 RT_API long long rt_flash_tc_smem(int DP) {
   switch (DP) {
     case 64: return static_cast<long long>(tc::smem_bytes<64>());

@@ -16,7 +16,7 @@
 //     accumulators, and cvt.rna to tf32;
 //   * mbarrier init, arrive_expect_tx and try_wait.parity;
 //   * cp.async.bulk.tensor (TMA) 4-d loads and the host-side encoding of a
-//     tensor map; 16-byte cp.async with zero fill.
+//     tensor map; 4-, 8- and 16-byte cp.async with zero fill.
 //
 // The accumulator of an m64nN product: thread t of the warpgroup (warp
 // w = t / 32, lane l) holds d[4j + 2i + c] = D[16w + l/4 + 8i][8j + 2(l%4)
@@ -146,6 +146,18 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_u32(dst)),
                "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// U = 4 or 8 bytes from global to shared memory, asynchronously, through
+// L1; only the first `src_bytes` (0..U) are read, the rest written as
+// zeros. Both addresses U-byte aligned.
+template <int U>
+__device__ __forceinline__ void cp_async_ca(void* dst, const void* src,
+                                            int src_bytes) {
+  static_assert(U == 4 || U == 8, "cp_async_ca: U");
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "n"(U), "r"(src_bytes)
                : "memory");
 }
 __device__ __forceinline__ void cp_async_commit() {

@@ -3,28 +3,33 @@
 Replaces the TPU kernel ``repro/kernels/flash_attention.py::_flash_kernel``
 (line 34). The kernel is ``csrc/flash_attention.cu``; its header says what
 bounds it on the H100 (memory at the embed path's S = 32, operations at
-long S) and what its three bodies do about that. Which body runs depends
-on the dtype and the head dim alone (:func:`body_of`):
+long S) and what its two bodies do about that. Which body runs depends on
+the dtype alone (:func:`body_of`), at every head dim from 1 to 256:
 
-  * ``"wgmma"``: bf16 / f16 with ``Dh % 16 == 0`` -- the tensor-core body
-    (64-row query tiles, TMA into a two-stage K/V ring, wgmma with P split
-    into hi and lo halves);
-  * ``"tf32x3"``: f32 with ``Dh % 4 == 0`` -- the same tiling in f32, each
-    product as three tf32 wgmmas on the big and small halves of its
-    operands (full f32 precision);
-  * ``"cuda_cores"``: 16-bit inputs with another head dim, and f32 with
-    ``Dh % 4 != 0`` -- f32 FMAs on 32-row query tiles.
+  * ``"wgmma"``: bf16 / f16 -- the tensor-core body (64-row query tiles,
+    a two-stage K/V ring, wgmma with P split into hi and lo halves);
+  * ``"tf32x3"``: f32 -- the same tiling in f32, each product as three
+    tf32 wgmmas on the big and small halves of its operands (full f32
+    precision).
 
-The two TMA bodies' tiling is :func:`plan_tc`, pure Python; their tensor
-maps need every stride of q, k and v that spans more than one element to
-be a multiple of 16 bytes, and 16-byte aligned pointers, or the wrapper
-raises rather than take another body.
+Both take the tiling of :func:`plan_tc` (pure Python), the head dim
+zero-filled to DP, a multiple of 64. Which loader fills their shared
+memory depends on the inputs' pointers and strides alone
+(:func:`loader_of`):
 
-``flash_attention_cuda.launches`` counts every launch and
-``flash_attention_cuda.body_launches`` each body's. The plain version is
-``kernels/ref.py::attention`` (``plain`` here); the two differ only on a
-row that sees no key, where the kernel gives 0 as the TPU kernel does and
-the plain version the mean of V, as ``repro``'s reference does.
+  * ``"tma"`` where :func:`tma_strides` accepts q, k and v (16-byte
+    aligned pointers, every stride of a dim longer than 1 a multiple of 16
+    bytes);
+  * ``"cp.async"`` otherwise (a row of Dh values that is no multiple of 16
+    bytes in the projections' transposed layout, a view off 16 bytes):
+    pieces of :func:`copy_bytes` each.
+
+``flash_attention_cuda.launches`` counts every launch,
+``flash_attention_cuda.body_launches`` each body's and
+``flash_attention_cuda.loader_launches`` each loader's. The plain version
+is ``kernels/ref.py::attention`` (``plain`` here); the two differ only on
+a row that sees no key, where the kernel gives 0 as the TPU kernel does
+and the plain version the mean of V, as ``repro``'s reference does.
 """
 from __future__ import annotations
 
@@ -38,24 +43,16 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import ref as _ref
 
 __all__ = ["flash_attention_cuda", "plain", "MAX_HEAD_DIM", "BODIES",
-           "body_of", "plan_tc", "TcPlan", "tc_smem", "tf32x3_smem",
-           "cuda_cores_smem"]
+           "LOADERS", "body_of", "loader_of", "copy_bytes", "plan_tc",
+           "TcPlan", "tc_smem", "tf32x3_smem"]
 
 plain = _ref.attention
 MAX_HEAD_DIM = 256
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-_BQ = 32           # query rows per block (csrc/flash_attention.cu kBQ)
-_BK = 32           # keys per tile of the CUDA-core body (kBK)
-BODIES = ("wgmma", "tf32x3", "cuda_cores")
+BODIES = ("wgmma", "tf32x3")
+LOADERS = ("tma", "cp.async")  # csrc/flash_attention.cu enum Loader
 _TC_ROWS = 64      # query rows per tensor-core tile (one warpgroup)
 _TC_BK = 32        # keys per K/V tile (csrc/flash_attention.cu tc::kKeys)
-
-
-def cuda_cores_smem(Dh: int) -> int:
-    """Dynamic shared memory of one block of the CUDA-core body
-    (``csrc/flash_attention.cu::cuda_cores_smem``): the query tile and one
-    K and one V tile in f32, rows of Dh rounded up to 4 plus 4 floats."""
-    return (_BQ + 2 * _BK) * ((Dh + 3) // 4 * 4 + 4) * 4
 
 
 def tc_smem(DP: int) -> int:
@@ -76,19 +73,17 @@ def tf32x3_smem(DP: int) -> int:
 
 
 def body_of(dtype: torch.dtype, Dh: int) -> str:
-    """The body that runs for inputs of ``dtype`` and head dim ``Dh``."""
-    if dtype in (torch.bfloat16, torch.float16) and Dh % 16 == 0:
-        return "wgmma"
-    if dtype == torch.float32 and Dh % 4 == 0:
-        return "tf32x3"
-    return "cuda_cores"
+    """The body that runs for inputs of ``dtype`` (the head dim ``Dh``,
+    any in [1, 256], does not choose: it is zero-filled to a multiple of
+    64)."""
+    return "tf32x3" if dtype == torch.float32 else "wgmma"
 
 
 @dataclasses.dataclass(frozen=True)
 class TcPlan:
-    """The tiling of the two TMA bodies (``csrc/flash_attention.cu`` tc
-    and x3)."""
-    DP: int          # Dh rounded up to 64, the tensor maps zero-filling
+    """The tiling of the two bodies (``csrc/flash_attention.cu`` tc and
+    x3)."""
+    DP: int          # Dh rounded up to 64, zero-filled by either loader
     BK: int          # keys per K/V tile (32)
     P: int           # query heads packed in one 64-row tile
     RQ: int          # positions per head in one tile (P * RQ <= 64)
@@ -100,7 +95,7 @@ class TcPlan:
 def plan_tc(B, Hq, Hkv, Sq, Skv, Dh, dtype=torch.bfloat16) -> TcPlan:
     """Tiling of the tensor-core body (bf16 / f16 ``dtype``) or of the
     3xTF32 body (f32: the same tiles, its own shared memory,
-    :func:`tf32x3_smem`, and head dims that are multiples of 4, not 16).
+    :func:`tf32x3_smem`), at any head dim in [1, 256], zero-filled to DP.
     At Sq <= 32 the 64 rows hold the Sq positions of P = min(g, 64 // Sq)
     query heads of one GQA group, so the group's K/V tile is read once (g
     = 2, S = 32 fills the tile); else 64 positions of one head. Key tiles
@@ -110,11 +105,9 @@ def plan_tc(B, Hq, Hkv, Sq, Skv, Dh, dtype=torch.bfloat16) -> TcPlan:
     took 0.47 ms at S = 4,096 where 32-key tiles took 0.36 on the H100);
     an f32 block 115,648 B at Dh 128, two an SM."""
     f32 = dtype == torch.float32
-    step = 4 if f32 else 16
-    if Dh % step or not step <= Dh <= MAX_HEAD_DIM:
+    if not 1 <= Dh <= MAX_HEAD_DIM:
         raise ValueError(f"{'3xTF32' if f32 else 'tensor-core'} body: head "
-                         f"dim {Dh} is not a multiple of {step} in [{step}, "
-                         f"{MAX_HEAD_DIM}]")
+                         f"dim {Dh} outside [1, {MAX_HEAD_DIM}]")
     g = Hq // Hkv
     DP = -(-Dh // 64) * 64
     BK = _TC_BK
@@ -145,25 +138,51 @@ def tma_strides(t: torch.Tensor) -> tuple[int, int, int] | None:
     return out
 
 
+def copy_bytes(t: torch.Tensor) -> int:
+    """The cp.async loader's piece of ``t``: the widest of 16, 8 and 4
+    bytes (2 for a 16-bit tensor that allows no wider) that its pointer
+    and the byte stride of every dim longer than 1 are multiples of."""
+    es = t.element_size()
+    steps = [t.data_ptr()] + [st * es for n, st in
+                              zip(t.shape[:3], t.stride()[:3]) if n > 1]
+    for u in (16, 8, 4):
+        if all(x % u == 0 for x in steps):
+            return u
+    return es
+
+
+def loader_of(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The loader that fills the body's shared memory: ``"tma"`` where
+    :func:`tma_strides` accepts q, k and v, else ``"cp.async"``."""
+    return _load_plan(q, k, v)[0]
+
+
+def _load_plan(q, k, v):
+    """(loader, each tensor's batch, head and position strides in
+    elements as the loader takes them, each tensor's copy width in
+    bytes). TMA takes :func:`tma_strides`; cp.async the strides as they
+    are, 0 for a dim of length 1 (never stepped), and :func:`copy_bytes`
+    pieces."""
+    qkv = (q, k, v)
+    strides = [tma_strides(t) for t in qkv]
+    if None not in strides:
+        return "tma", strides, (16, 16, 16)
+    strides = [tuple(st if n > 1 else 0 for n, st in
+                     zip(t.shape[:3], t.stride()[:3])) for t in qkv]
+    return "cp.async", strides, tuple(copy_bytes(t) for t in qkv)
+
+
 _ARGS = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 9 \
     + [ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int,
        ctypes.c_float, ctypes.c_int]
 
 
 @functools.cache
-def _entry():
-    f = _build.library("flash_attention").rt_flash_attention
-    f.argtypes = _ARGS + [ctypes.c_void_p]
-    f.restype = ctypes.c_int
-    return f
-
-
-@functools.cache
-def _entry_tma(body: str):
+def _entry(body: str):
     name = {"wgmma": "rt_flash_attention_tc",
             "tf32x3": "rt_flash_attention_tf32x3"}[body]
     f = getattr(_build.library("flash_attention"), name)
-    f.argtypes = _ARGS + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    f.argtypes = _ARGS + [ctypes.c_int] * 9 + [ctypes.c_void_p]
     f.restype = ctypes.c_int
     return f
 
@@ -188,9 +207,10 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
                          scale=None, q_offset=0):
     """q [B, Hq, Sq, Dh], k / v [B, Hkv, Skv, Dh] (CUDA; f32, bf16 or
     f16, one dtype; ``Hq % Hkv == 0``; ``Dh <= 256``) -> [B, Hq, Sq, Dh]
-    dense, in q's dtype. Launches the body :func:`body_of` names, or
-    raises; raises too when autograd would need its gradient (grad mode
-    on and q, k or v requiring grad), since the kernel has no backward."""
+    dense, in q's dtype. Launches the body :func:`body_of` names with the
+    loader :func:`loader_of` names, or raises; raises too when autograd
+    would need its gradient (grad mode on and q, k or v requiring grad),
+    since the kernel has no backward."""
     if torch.is_grad_enabled() and any(
             isinstance(t, torch.Tensor) and t.requires_grad
             for t in (q, k, v)):
@@ -221,24 +241,12 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
     if out.numel() == 0:
         return out
     body = body_of(q.dtype, Dh)
-    if body != "cuda_cores":
-        strides = [tma_strides(t) for t in (q, k, v)]
-        for st, name in zip(strides, "qkv"):
-            if st is None:
-                raise ValueError(
-                    f"{name}: the {body} body reads it by TMA, which "
-                    "needs a 16-byte aligned pointer and strides that are "
-                    "multiples of 16 bytes (make it contiguous)")
-        plan = plan_tc(B, Hq, Hkv, Sq, Skv, Dh, q.dtype)
-        entry, extra = _entry_tma(body), (plan.DP, plan.P, plan.RQ,
-                                          *plan.grid)
-    else:
-        if -(-Sq // _BQ) > 65535:  # allow[R5]: the grid's y limit
-            raise ValueError(f"Sq={Sq} needs more than 65,535 query tiles")
-        strides = [t.stride()[:3] for t in (q, k, v)]
-        entry, extra = _entry(), ()
+    loader, strides, widths = _load_plan(q, k, v)
+    plan = plan_tc(B, Hq, Hkv, Sq, Skv, Dh, q.dtype)
+    if plan.grid[1] > 65535:  # allow[R5]: the grid's y limit
+        raise ValueError(f"Sq={Sq} needs more than 65,535 query tiles")
     with _build.on_device(dev):
-        rc = entry(
+        rc = _entry(body)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             _DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, Dh,
             *strides[0], *strides[1], *strides[2],
@@ -246,12 +254,15 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, softcap=None,
             0 if window is None else int(window),
             int(softcap is not None),
             0.0 if softcap is None else float(softcap),
-            int(q_offset), *extra, _build.stream_of(dev))
-    _build.check(rc, "flash_attention", f"flash_attention[{body}]")
+            int(q_offset), plan.DP, plan.P, plan.RQ, *plan.grid,
+            LOADERS.index(loader), *widths, _build.stream_of(dev))
+    _build.check(rc, "flash_attention", f"flash_attention[{body}, {loader}]")
     flash_attention_cuda.launches += 1
     flash_attention_cuda.body_launches[body] += 1
+    flash_attention_cuda.loader_launches[loader] += 1
     return out
 
 
 flash_attention_cuda.launches = 0
 flash_attention_cuda.body_launches = dict.fromkeys(BODIES, 0)
+flash_attention_cuda.loader_launches = dict.fromkeys(LOADERS, 0)

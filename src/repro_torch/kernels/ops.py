@@ -53,12 +53,14 @@ override, every plan is the fixed rule of ``gather_distance.plan`` and
 :func:`launch_counts` / :func:`reset_launch_counts` read and zero the
 kernel wrappers' launch counters (plain integers on each wrapper, raised
 once per launch and nowhere else); :func:`layout_counts` reads the
-per-layout counts of ``gather_dist``, ``hop`` and ``prune``, and
+per-layout counts of ``gather_dist``, ``hop`` and ``prune``,
 :func:`body_counts` the per-body counts of ``flash_attention``
-(``"wgmma"``, ``"cuda_cores"``) and ``pairwise_dist`` (``"tf32x3"``,
-``"wgmma"``). ``prune_cuda.regime_launches`` counts the prune's
-launches per regime (``prune.REGIMES``: ``"block"``, ``"table"``,
-``"partial"``), and :func:`reset_launch_counts` zeroes it too.
+(``"wgmma"``, ``"tf32x3"``) and ``pairwise_dist`` (``"tf32x3"``,
+``"wgmma"``), and :func:`loader_counts` the per-loader counts of
+``flash_attention`` (``"tma"``, ``"cp.async"``).
+``prune_cuda.regime_launches`` counts the prune's launches per regime
+(``prune.REGIMES``: ``"block"``, ``"table"``, ``"partial"``), and
+:func:`reset_launch_counts` zeroes it too.
 """
 from __future__ import annotations
 
@@ -82,7 +84,7 @@ __all__ = [
     "pairwise_dist", "gather_dist", "select_edges", "prune", "hop",
     "flash_attention", "default_impl", "resolve_impl", "resolve_hop",
     "launch_counts", "reset_launch_counts", "layout_counts", "body_counts",
-    "KERNELS",
+    "loader_counts", "KERNELS",
 ]
 
 # kernel name -> its wrapper (each holds a ``launches`` counter)
@@ -112,10 +114,17 @@ def body_counts() -> dict[str, int]:
             for body, c in getattr(fn, "body_launches", {}).items()}
 
 
+def loader_counts() -> dict[str, int]:
+    """Launches per loader, as ``"flash_attention[cp.async]"`` -> count."""
+    return {f"{name}[{how}]": c for name, fn in KERNELS.items()
+            for how, c in getattr(fn, "loader_launches", {}).items()}
+
+
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
         fn.launches = 0
-        for attr in ("layout_launches", "body_launches", "regime_launches"):
+        for attr in ("layout_launches", "body_launches", "loader_launches",
+                     "regime_launches"):
             if hasattr(fn, attr):
                 setattr(fn, attr, dict.fromkeys(getattr(fn, attr), 0))
 

@@ -19,7 +19,7 @@ form of R4's "no parallel bookkeeping".
     (library, symbol, arguments): each ``autotune.CANDIDATES[kind]``
     candidate at each ``autotune.PROBES`` shape and each
     :data:`PRODUCTION` shape, pairwise_dist's plan per dtype, and the
-    three flash bodies at every head dim up to 256 that each takes;
+    two flash bodies at every head dim from 1 to 256;
   * :func:`findings` -- an entry over the budget, a candidate its plan
     refuses, a ``CANDIDATES`` kind without a size function
     (:data:`SIZES`), and a ``csrc/*.cu`` launch with dynamic shared
@@ -142,7 +142,7 @@ LAUNCHES = {
     "hop.cu": ("hop_smem",),
     "edge_select.cu": ("edge_smem",),
     "prune.cu": ("table_bytes", "smem_bytes"),
-    "flash_attention.cu": ("cuda_cores_smem", "smem_bytes", "tf32x3_smem"),
+    "flash_attention.cu": ("smem_bytes", "tf32x3_smem"),
     "distance.cu": ("kSmem",),
 }
 _LAUNCH = re.compile(r"<<<(.*?)>>>", re.S)
@@ -185,17 +185,11 @@ def entries(candidates=None) -> list[dict]:
                           {}, lambda dtype=dtype, code=code: (
                               _distance.smem_of(dtype),
                               ("distance", "rt_pairwise_smem", (code,)))))
-    for Dh in range(16, _flash.MAX_HEAD_DIM + 1, 16):
+    for Dh in range(1, _flash.MAX_HEAD_DIM + 1):
         out.append(_entry("flash[wgmma]", f"Dh {Dh}", {},
                           lambda Dh=Dh: _flash_tc_size(Dh)))
-    for Dh in range(4, _flash.MAX_HEAD_DIM + 1, 4):
         out.append(_entry("flash[tf32x3]", f"Dh {Dh}", {},
                           lambda Dh=Dh: _flash_tc_size(Dh, torch.float32)))
-    for Dh in range(1, _flash.MAX_HEAD_DIM + 1):
-        out.append(_entry(
-            "flash[cuda_cores]", f"Dh {Dh}", {}, lambda Dh=Dh: (
-                _flash.cuda_cores_smem(Dh),
-                ("flash_attention", "rt_flash_smem", (Dh,)))))
     return out
 
 

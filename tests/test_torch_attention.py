@@ -7,10 +7,11 @@ kernel run in interpret mode (``repro.kernels.ops.flash_attention(impl=
 ``repro``'s reference, on the same numpy inputs, within 1e-5 in f32 (both
 sum Dh products and the softmax in other orders). The grid covers causal
 and bidirectional attention, GQA at g = 2 and 4, a window, a softcap,
-``q_offset``, ragged Sq / Skv, and Sq = 2048, where both references chunk
-the queries (``block_q``). Where a row sees no key the plain versions agree
-with each other (the mean of V) and the kernels, not compared here, give 0
-(``tests/test_torch_cuda.py`` pins that on the card).
+``q_offset``, ragged Sq / Skv, an odd head dim (9), and Sq = 2048, where
+both references chunk the queries (``block_q``). Where a row sees no key
+the plain versions agree with each other (the mean of V) and the kernels,
+not compared here, give 0 (``tests/test_torch_cuda.py`` pins that on the
+card).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -35,6 +36,8 @@ CASES = {
     "cross_ragged": (1, 2, 2, 21, 45, 12, {"causal": False}),
     "everything": (1, 4, 2, 45, 77, 8,
                    {"window": 24, "softcap": 30.0, "q_offset": 32}),
+    # an odd head dim, as the card's bodies zero-fill it
+    "odd_dh9_gqa2_ragged": (1, 4, 2, 29, 29, 9, {}),
 }
 
 

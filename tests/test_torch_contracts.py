@@ -125,7 +125,8 @@ def test_r1_knobs_md_is_generated():
 # ---------------------------------------------------------------------------
 
 NON_OPS = {"default_impl", "resolve_impl", "resolve_hop", "launch_counts",
-           "reset_launch_counts", "layout_counts", "body_counts", "KERNELS"}
+           "reset_launch_counts", "layout_counts", "body_counts",
+           "loader_counts", "KERNELS"}
 OPS = [name for name in ops.__all__ if name not in NON_OPS]
 OPS_TREE = ast.parse(inspect.getsource(ops))
 FUNCS = {n.name: n for n in OPS_TREE.body if isinstance(n, ast.FunctionDef)}
@@ -520,8 +521,13 @@ def test_r4_every_plan_fits_the_card():
     assert not smem_budget.findings()
     kinds = {e["kind"] for e in smem_budget.entries()}
     assert set(autotune.CANDIDATES) <= kinds
-    assert {"pairwise_dist", "flash[wgmma]", "flash[cuda_cores]"} <= kinds
+    assert {"pairwise_dist", "flash[wgmma]", "flash[tf32x3]"} <= kinds
     assert all(e["c"] is not None for e in smem_budget.entries())
+    # both flash bodies take every head dim from 1 to 256
+    for body in ("wgmma", "tf32x3"):
+        dims = {e["shape"] for e in smem_budget.entries()
+                if e["kind"] == f"flash[{body}]"}
+        assert dims == {f"Dh {d}" for d in range(1, 257)}, body
 
 
 def test_r4_covers_every_candidate_kind_and_launch():

@@ -540,6 +540,14 @@ FLASH = {
     "cross_ragged": (1, 2, 1, 33, 97, 7, {"causal": False}),
     "everything": (1, 4, 2, 50, 130, 256,
                    {"window": 40, "softcap": 20.0, "q_offset": 80}),
+    # head dims the bodies zero-fill to DP: rows of 2 to 500 bytes, by
+    # TMA where they are multiples of 16 bytes, else by cp.async
+    "dh1": (1, 4, 2, 33, 33, 1, {}),
+    "dh8": (1, 4, 2, 40, 40, 8, {}),
+    "dh40_window": (1, 4, 2, 70, 70, 40, {"window": 24}),
+    "dh66_q_offset": (1, 4, 2, 45, 77, 66, {"q_offset": 32}),
+    "dh72_bidirectional": (2, 4, 2, 50, 50, 72, {"causal": False}),
+    "dh250_softcap": (1, 4, 2, 64, 64, 250, {"softcap": 30.0}),
 }
 
 
@@ -562,12 +570,21 @@ def _bf16_tol(got, want):
 
 
 def _flash_body(dtype, Dh):
-    """The body the dispatch must pick: dtype and head dim alone."""
-    if dtype != torch.float32 and Dh % 16 == 0:
-        return "wgmma"
-    if dtype == torch.float32 and Dh % 4 == 0:
-        return "tf32x3"
-    return "cuda_cores"
+    """The body the dispatch must pick: the dtype alone, at any head dim
+    up to 256."""
+    return "tf32x3" if dtype == torch.float32 else "wgmma"
+
+
+def _flash_loader(*ts):
+    """The loader the dispatch must pick: TMA where every pointer is on
+    16 bytes and every stride of a dim longer than 1 a positive multiple
+    of 16 bytes, else cp.async."""
+    def tma(t):
+        es = t.element_size()
+        return t.data_ptr() % 16 == 0 and all(
+            st > 0 and st * es % 16 == 0
+            for n, st in zip(t.shape[:3], t.stride()[:3]) if n > 1)
+    return "tma" if all(tma(t) for t in ts) else "cp.async"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
@@ -581,6 +598,8 @@ def test_flash_attention(dev, case, dtype):
     assert ops.launch_counts()["flash_attention"] == 1
     body = _flash_body(dtype, Dh)
     assert ops.body_counts()[f"flash_attention[{body}]"] == 1
+    loader = _flash_loader(q, k, v)
+    assert ops.loader_counts()[f"flash_attention[{loader}]"] == 1
     want = ref.attention(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == (B, Hq, Sq, Dh)
     assert got.is_contiguous()
@@ -595,18 +614,21 @@ def test_flash_attention(dev, case, dtype):
                          ids=["bf16", "f16"])
 @pytest.mark.parametrize("Sq", [1, 31, 32, 33, 64, 100])
 @pytest.mark.parametrize("g", [1, 2, 4, 8, 48])
-@pytest.mark.parametrize("Dh", [64, 96, 128, 192, 256])
+@pytest.mark.parametrize("Dh", [8, 40, 64, 66, 72, 96, 128, 192, 250, 256])
 def test_flash_attention_tensor_core_grid(dev, Dh, g, Sq, dtype):
-    """Every config's head dim through the tensor-core body, GQA groups
-    up to granite's 48:1, query lengths around the 32-row packing and the
-    64-row tile; causal over Skv = Sq + 7 keys (q_offset 7), so ragged key
-    tiles are masked, never merely zero."""
+    """Every config's head dim through the tensor-core body, and head dims
+    it zero-fills (by TMA at 16, 80 and 144-byte rows, by cp.async at 132
+    and 500), GQA groups up to granite's 48:1, query lengths around the
+    32-row packing and the 64-row tile; causal over Skv = Sq + 7 keys
+    (q_offset 7), so ragged key tiles are masked, never merely zero."""
     Hkv = 2 if g < 48 else 1
     q, k, v = _qkv(dev, 1, g * Hkv, Hkv, Sq, Sq + 7, Dh, dtype,
                    seed=Dh + g + Sq)
     ops.reset_launch_counts()
     got = flash_attention_cuda(q, k, v, q_offset=7)
     assert ops.body_counts()["flash_attention[wgmma]"] == 1
+    loader = "tma" if Dh % 8 == 0 else "cp.async"
+    assert ops.loader_counts()[f"flash_attention[{loader}]"] == 1
     want = ref.attention(q, k, v, q_offset=7)
     err = (got.float() - want.float()).abs()
     assert bool((err <= _bf16_tol(got, want)).all())
@@ -614,18 +636,20 @@ def test_flash_attention_tensor_core_grid(dev, Dh, g, Sq, dtype):
 
 @pytest.mark.parametrize("Sq", [1, 32, 33, 100])
 @pytest.mark.parametrize("g", [1, 2, 48])
-@pytest.mark.parametrize("Dh", [4, 36, 64, 100, 128, 196, 256])
+@pytest.mark.parametrize("Dh", [1, 4, 36, 64, 66, 100, 128, 196, 250, 256])
 def test_flash_attention_tf32x3_grid(dev, Dh, g, Sq):
     """The 3xTF32 body over head dims that zero-fill to 64, 128, 192 and
-    256 columns, GQA groups and query lengths around its tiles, causal
-    over Skv = Sq + 7 keys (q_offset 7): within 1e-5 of the plain
-    version."""
+    256 columns (by TMA where a row is a multiple of 16 bytes, else by
+    cp.async), GQA groups and query lengths around its tiles, causal over
+    Skv = Sq + 7 keys (q_offset 7): within 1e-5 of the plain version."""
     Hkv = 2 if g < 48 else 1
     q, k, v = _qkv(dev, 1, g * Hkv, Hkv, Sq, Sq + 7, Dh, torch.float32,
                    seed=Dh + g + Sq)
     ops.reset_launch_counts()
     got = flash_attention_cuda(q, k, v, q_offset=7)
     assert ops.body_counts()["flash_attention[tf32x3]"] == 1
+    loader = "tma" if Dh % 4 == 0 else "cp.async"
+    assert ops.loader_counts()[f"flash_attention[{loader}]"] == 1
     want = ref.attention(q, k, v, q_offset=7)
     assert float((got - want).abs().max()) <= 1e-5
 
@@ -657,21 +681,60 @@ def test_flash_attention_refuses_autograd(dev):
         assert ops.launch_counts()["flash_attention"] == 1
 
 
-def test_flash_attention_tensor_core_needs_tma_strides(dev):
-    """A 16-bit input whose position stride is not a multiple of 16
-    bytes goes to no other body: the wrapper raises; so does an f32 input
-    whose pointer is 4 bytes off."""
-    q, k, v = _qkv(dev, 1, 2, 2, 8, 8, 64, torch.bfloat16, seed=3)
-    odd = torch.zeros((1, 2, 8, 68), dtype=torch.bfloat16,
-                      device=dev)[..., 2:66]
-    with pytest.raises(ValueError, match="TMA"):
-        flash_attention_cuda(odd, k, v)
-    q, k, v = _qkv(dev, 1, 2, 2, 8, 8, 64, torch.float32, seed=3)
-    off = torch.zeros((1, 2, 8, 68), device=dev)[..., 1:65]
+def _in_rows(t, width, off=0):
+    """t [B, H, S, Dh]'s values as a view of columns [off, off + Dh) of a
+    [B, S, H, width] buffer, the projections' transposed layout."""
+    buf = torch.zeros((t.shape[0], t.shape[2], t.shape[1], width),
+                      dtype=t.dtype, device=t.device)
+    buf[..., off:off + t.shape[-1]] = t.transpose(1, 2)
+    return buf[..., off:off + t.shape[-1]].transpose(1, 2)
+
+
+BF16, F16, F32 = torch.bfloat16, torch.float16, torch.float32
+# case -> (dtype, Dh): views TMA cannot read, and padded rows it can
+TMA_VIEWS = {
+    "q_2_bytes_off_bf16": (BF16, 128), "q_2_bytes_off_f16": (F16, 128),
+    "q_4_bytes_off_bf16": (BF16, 128), "q_4_bytes_off_f32": (F32, 128),
+    "rows_of_136_bytes_bf16": (BF16, 64), "rows_of_136_bytes_f32": (F32, 32),
+    "kv_expanded_bf16": (BF16, 128), "kv_expanded_f32": (F32, 128),
+    "padded_rows_dh66_bf16": (BF16, 66), "padded_rows_dh66_f32": (F32, 66),
+}
+
+
+@pytest.mark.parametrize("case", sorted(TMA_VIEWS))
+def test_flash_attention_tensor_core_needs_tma_strides(dev, case):
+    """Views TMA cannot read run the same body by the cp.async loader: a
+    q view 2 or 4 bytes off its allocation (2- or 4-byte pieces), rows of
+    136 bytes (8-byte pieces), K/V expanded over heads (a head stride of
+    0); a head dim of 66 in rows padded to 72 goes by TMA, which
+    zero-fills past 66. Each within 1e-5 (f32) or one bf16 ulp (16-bit)
+    of the plain version."""
+    dtype, Dh = TMA_VIEWS[case]
+    B, Hq, Hkv, S = 2, 4, 2, 45
+    q, k, v = _qkv(dev, B, Hq, Hkv, S, S, Dh, dtype, seed=11)
+    es = q.element_size()
+    if case.startswith("q_2_bytes_off") or case.startswith("q_4_bytes"):
+        off = (2 if case.startswith("q_2") else 4) // es
+        q = _in_rows(q, Dh + 8, off)
+    elif case.startswith("rows_of_136_bytes"):
+        q, k, v = (_in_rows(t, 136 // es) for t in (q, k, v))
+    elif case.startswith("kv_expanded"):
+        k, v = (t[:, :1].expand(B, Hkv, S, Dh) for t in (k, v))
+    else:
+        q, k, v = (_in_rows(t, 72) for t in (q, k, v))
+    loader = "tma" if case.startswith("padded_rows") else "cp.async"
+    assert _flash_loader(q, k, v) == loader
     ops.reset_launch_counts()
-    with pytest.raises(ValueError, match="TMA"):
-        flash_attention_cuda(off, k, v)
-    assert ops.launch_counts()["flash_attention"] == 0
+    got = flash_attention_cuda(q, k, v)
+    assert ops.loader_counts()[f"flash_attention[{loader}]"] == 1
+    assert ops.body_counts()[f"flash_attention[{_flash_body(dtype, Dh)}]"] \
+        == 1
+    want = ref.attention(q, k, v)
+    err = (got.float() - want.float()).abs()
+    if dtype == torch.float32:
+        assert float(err.max()) <= 1e-5
+    else:
+        assert bool((err <= _bf16_tol(got, want)).all())
 
 
 def test_flash_attention_row_seeing_no_key_is_zero(dev):

@@ -38,6 +38,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro_torch.kernels import distance as tdist
 from repro_torch.kernels import flash_attention as tflash
@@ -61,18 +62,20 @@ def bf16_tol(got, want):
 
 # -- flash attention --------------------------------------------------------
 
-def emulate_flash(q, k, v, dtype, *, split=True, bk=32, causal=True):
+def emulate_flash(q, k, v, dtype, *, split=True, bk=32, causal=True,
+                  scale=None):
     """The tensor-core body's arithmetic on 16-bit-valued f32 tensors q
     [B, Hq, S, Dh], k / v [B, Hkv, S, Dh]: scores in f32 (the products of
-    16-bit values are exact), the online softmax over ``bk``-key tiles in
-    log2 units, P split into hi and lo in ``dtype`` (or rounded once),
-    P.V summed in f32, the output rounded once to ``dtype``."""
+    16-bit values are exact) times ``scale`` (default ``1 / sqrt(Dh)``),
+    the online softmax over ``bk``-key tiles in log2 units, P split into
+    hi and lo in ``dtype`` (or rounded once), P.V summed in f32, the
+    output rounded once to ``dtype``."""
     B, Hq, Sq, Dh = q.shape
     g = Hq // k.shape[1]
     Skv = k.shape[2]
     kk = k.repeat_interleave(g, 1)
     vv = v.repeat_interleave(g, 1)
-    sl2 = (1.0 / Dh ** 0.5) * LOG2E
+    sl2 = (1.0 / Dh ** 0.5 if scale is None else scale) * LOG2E
     m = torch.full((B, Hq, Sq, 1), -1e30)
     l = torch.zeros((B, Hq, Sq, 1))
     o = torch.zeros((B, Hq, Sq, Dh))
@@ -129,6 +132,31 @@ def test_flash_p_rounded_once_breaks_the_card_gate(S):
     assert float(over.float().mean()) > 0.01
 
 
+def _zero_pad(t, DP):
+    """t's head dim zero-filled to DP columns, as either loader fills the
+    body's shared memory."""
+    return torch.nn.functional.pad(t, (0, DP - t.shape[-1]))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16],
+                         ids=["bf16", "f16"])
+def test_flash_zero_filled_head_dim_is_exact(dtype):
+    """A 16-bit head dim the body zero-fills (Dh 72 -> DP 128, at Dh 72's
+    scale): the emulation on the padded inputs equals the unpadded
+    emulation exactly in its first 72 columns (zero columns add exact
+    zeros to every score and feed only the output columns past Dh, which
+    come out 0 and are never stored)."""
+    rng = np.random.default_rng(72)
+    q, k, v = (torch.from_numpy(rng.standard_normal(sh).astype(np.float32))
+               .to(dtype).float()
+               for sh in ((1, 4, 80, 72), (1, 2, 80, 72), (1, 2, 80, 72)))
+    want = emulate_flash(q, k, v, dtype)
+    got = emulate_flash(*(_zero_pad(t, 128) for t in (q, k, v)), dtype,
+                        scale=1.0 / 72 ** 0.5)
+    assert torch.equal(got[..., :72], want)
+    assert not bool(got[..., 72:].float().any())
+
+
 def test_flash_emulation_without_rounding_is_the_reference():
     """The emulation itself is the reference's function: in f32 with no
     16-bit rounding it agrees within the f32 gate."""
@@ -167,9 +195,10 @@ def _steps(acc, pairs):
 
 
 def emulate_flash_f32(q, k, v, *, mode="3xtf32", causal=True, window=None,
-                      softcap=None, q_offset=0, bk=32):
+                      softcap=None, q_offset=0, bk=32, scale=None):
     """The 3xTF32 body's arithmetic on f32 q [B, Hq, Sq, Dh], k / v [B,
-    Hkv, Skv, Dh]: S = (scale q).k^T in k8 steps, the online softmax over
+    Hkv, Skv, Dh]: S = (scale q).k^T in k8 steps (``scale`` by default
+    ``1 / sqrt(Dh)``), the online softmax over
     ``bk``-key tiles in log2 units, P.V in 8-key steps. ``mode``:
     "3xtf32" as the kernel (big.big into one accumulator and small.big +
     big.small into another for S; small.big, big.small, big.big into O);
@@ -180,7 +209,7 @@ def emulate_flash_f32(q, k, v, *, mode="3xtf32", causal=True, window=None,
     Skv = k.shape[2]
     kk_ = k.repeat_interleave(g, 1)
     vv = v.repeat_interleave(g, 1)
-    qs = q * (1.0 / Dh ** 0.5)
+    qs = q * (1.0 / Dh ** 0.5 if scale is None else scale)
     qb, kb, vb = _rna(qs), _rna(kk_), _rna(vv)
     qsm, ksm, vsm = _trunc(qs - qb), _trunc(kk_ - kb), _trunc(vv - vb)
     big = torch.zeros((B, Hq, Sq, Skv))
@@ -301,6 +330,23 @@ def test_flash_3xtf32_emulation_agrees_with_repro():
     want = np.asarray(jref.attention(*(jnp.asarray(a) for a in (q, k, v))))
     got = attention_f64(*(torch.from_numpy(a) for a in (q, k, v)))
     assert float(np.abs(got.numpy() - want).max()) <= FLASH_F32_TOL
+
+
+def test_flash_3xtf32_zero_filled_head_dim_agrees_with_pallas():
+    """f32 Dh 66 as the 3xTF32 body runs it, zero-filled to DP 128 at Dh
+    66's scale: within FLASH_F32_TOL of ``repro``'s Pallas kernel
+    (interpret mode) on the unpadded inputs, its columns past 66 0."""
+    rng = np.random.default_rng(66)
+    q, k, v = (rng.standard_normal(sh).astype(np.float32)
+               for sh in ((1, 2, 64, 66), (1, 1, 64, 66), (1, 1, 64, 66)))
+    want = np.asarray(jops.flash_attention(
+        *(jnp.asarray(a) for a in (q, k, v)), impl="pallas", block_q=32,
+        block_k=32))
+    got = emulate_flash_f32(*(_zero_pad(torch.from_numpy(a), 128)
+                              for a in (q, k, v)), scale=1.0 / 66 ** 0.5)
+    assert float(np.abs(got[..., :66].numpy() - want).max()) \
+        <= FLASH_F32_TOL
+    assert not bool(got[..., 66:].any())
 
 
 # -- pairwise distance ------------------------------------------------------
@@ -453,13 +499,17 @@ def test_half_gate_chunks_agree():
 @pytest.mark.parametrize("dtype,Dh,body", [
     (torch.bfloat16, 128, "wgmma"), (torch.float16, 96, "wgmma"),
     (torch.bfloat16, 16, "wgmma"), (torch.bfloat16, 256, "wgmma"),
-    (torch.float32, 128, "tf32x3"), (torch.bfloat16, 7, "cuda_cores"),
-    (torch.float16, 40, "cuda_cores"), (torch.float32, 7, "cuda_cores"),
+    (torch.float32, 128, "tf32x3"), (torch.bfloat16, 7, "wgmma"),
+    (torch.float16, 40, "wgmma"), (torch.float32, 7, "tf32x3"),
     (torch.float32, 4, "tf32x3"), (torch.float32, 100, "tf32x3"),
-    (torch.float32, 256, "tf32x3"), (torch.float32, 66, "cuda_cores"),
-    (torch.bfloat16, 72, "cuda_cores"),
+    (torch.float32, 256, "tf32x3"), (torch.float32, 66, "tf32x3"),
+    (torch.bfloat16, 72, "wgmma"), (torch.bfloat16, 8, "wgmma"),
+    (torch.float16, 66, "wgmma"), (torch.bfloat16, 40, "wgmma"),
+    (torch.float32, 1, "tf32x3"), (torch.float32, 6, "tf32x3"),
 ])
 def test_flash_body_by_dtype_and_head_dim(dtype, Dh, body):
+    """Every head dim from 1 to 256 runs on a tensor-core body: wgmma for
+    the 16-bit types, tf32x3 for f32."""
     assert tflash.body_of(dtype, Dh) == body
     assert body in tflash.BODIES
 
@@ -559,16 +609,30 @@ def test_flash_tf32x3_shared_memory(Dh):
     assert tflash.body_of(torch.float32, Dh) == "tf32x3"
 
 
-@pytest.mark.parametrize("Dh", [1, 6, 66, 260])
+@pytest.mark.parametrize("Dh", [0, 257, 260])
 def test_flash_tf32x3_plan_rejects_other_head_dims(Dh):
-    with pytest.raises(ValueError, match="multiple of 4"):
+    with pytest.raises(ValueError, match="outside"):
         tflash.plan_tc(1, 2, 1, 8, 8, Dh, torch.float32)
 
 
-@pytest.mark.parametrize("Dh", [7, 8, 40, 264])
+@pytest.mark.parametrize("Dh", [0, 257, 264])
 def test_flash_plan_rejects_other_head_dims(Dh):
-    with pytest.raises(ValueError, match="multiple of 16"):
+    with pytest.raises(ValueError, match="outside"):
         tflash.plan_tc(1, 2, 1, 8, 8, Dh)
+
+
+@pytest.mark.parametrize("dtype,Dh", [
+    (torch.bfloat16, 7), (torch.bfloat16, 8), (torch.float16, 40),
+    (torch.bfloat16, 66), (torch.bfloat16, 72), (torch.float32, 1),
+    (torch.float32, 6), (torch.float32, 66)])
+def test_flash_plan_takes_every_head_dim(dtype, Dh):
+    """A head dim no multiple of 16 (16-bit) or 4 (f32) is zero-filled to
+    DP, Dh rounded up to 64, with DP's shared memory."""
+    plan = tflash.plan_tc(1, 2, 1, 8, 8, Dh, dtype)
+    assert plan.DP == -(-Dh // 64) * 64
+    f32 = dtype == torch.float32
+    assert plan.smem_bytes == (tflash.tf32x3_smem if f32
+                               else tflash.tc_smem)(plan.DP)
 
 
 def test_tma_strides():
@@ -586,6 +650,47 @@ def test_tma_strides():
     if shifted.data_ptr() % 16:
         assert tflash.tma_strides(shifted) is None  # 2 bytes off
     assert tflash.tma_strides(base[..., 8:]) is not None
+
+
+def _view(shape, dtype, cut=None, transpose=True):
+    """A zero tensor of ``shape`` ([B, S, H, D]), its last dim cut to
+    ``cut`` (a slice), viewed as [B, H, S, ...] like the projections'
+    outputs when ``transpose``."""
+    t = torch.zeros(shape, dtype=dtype)
+    if cut is not None:
+        t = t[..., cut]
+    return t.transpose(1, 2) if transpose else t
+
+
+@pytest.mark.parametrize("dtype,shape,cut,transpose,loader,width", [
+    # test_tma_strides' layouts
+    (torch.bfloat16, (2, 5, 4, 64), None, True, "tma", 16),
+    (torch.bfloat16, (1, 3, 1, 64), None, True, "tma", 16),
+    (torch.bfloat16, (1, 8, 2, 68), slice(0, 64), False, "cp.async", 8),
+    (torch.bfloat16, (1, 8, 2, 72), slice(1, 65), False, "cp.async", 2),
+    (torch.bfloat16, (1, 8, 2, 72), slice(8, None), False, "tma", 16),
+    # head dims in the projections' layout: Dh 72 bf16 (144-byte rows)
+    # and Dh 100 f32 by TMA; f32 Dh 66 (264-byte head stride), bf16 Dh 66
+    # and 7, and a q view 2 bytes off its allocation by cp.async
+    (torch.bfloat16, (2, 5, 16, 72), None, True, "tma", 16),
+    (torch.float32, (2, 5, 16, 100), None, True, "tma", 16),
+    (torch.float32, (2, 5, 16, 66), None, True, "cp.async", 8),
+    (torch.bfloat16, (2, 5, 16, 66), None, True, "cp.async", 4),
+    (torch.bfloat16, (2, 5, 16, 7), None, True, "cp.async", 2),
+    (torch.bfloat16, (2, 5, 16, 136), slice(1, 129), True, "cp.async", 2),
+    (torch.float32, (2, 5, 16, 68), slice(1, 67), True, "cp.async", 4),
+])
+def test_flash_loader_of(dtype, shape, cut, transpose, loader, width):
+    """TMA where ``tma_strides`` takes q, k and v; cp.async otherwise, in
+    the widest pieces the pointer and strides allow."""
+    t = _view(shape, dtype, cut, transpose)
+    aligned = torch.zeros((1, 2, 3, t.shape[-1]), dtype=dtype)
+    assert tflash.loader_of(t, t, t) == loader
+    # one tensor TMA cannot read sends all three to cp.async
+    assert tflash.loader_of(aligned, aligned, t) == loader
+    if loader == "cp.async":
+        assert tflash.copy_bytes(t) == width
+    assert (tflash.tma_strides(t) is not None) == (loader == "tma")
 
 
 def test_pairwise_grid():
