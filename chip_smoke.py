@@ -258,12 +258,36 @@ the full-size run, one card). It
      512 (seamless: 512 seeded frames), two steps each; gates: every
      gradient leaf finite and not None, losses finite, MoE aux > 0; prints
      ms a step and peak memory. The phase fails past TRAIN_MAX_S;
+  11f. the mesh half (``mesh_phase``, ``mesh[qwen3-0.6b 1x1]`` lines): a
+     world-size-1 NCCL group and ``launch/mesh.py::make_local_mesh(1, 1)``
+     on the card. (a) The lm serve leg's seeded qwen3-0.6b at full width,
+     its parameters DTensors by ``Model.param_specs``, embeds 256 x 32
+     tokens on the mesh with every count at 0 just before it; gates: 28
+     flash launches, one per layer, each through ``local_map``
+     (``ops.MESH_CALLS``), all on the wgmma body, and a least row cosine
+     >= MESH_MIN_COSINE to the meshless embeddings (max abs difference
+     printed). (b) Two train steps at B 16 x S 1,024 (attention plain
+     torch, remat full) from the same seeded weights, meshless and on the
+     mesh, deterministic algorithms on for both; gates: the losses within
+     MESH_LOSS_RTOL relative, the same parameter and AdamW bytes; prints s
+     a step both ways and peak device memory. Meanwhile, on the host,
+     ``launch/dryrun.py`` runs in processes of its own: (c) (b)'s step on
+     a 1 x 1 fake mesh, whose parameter and AdamW-state bytes must equal
+     (b)'s real tensors (its ``bytes_per_device`` printed beside the
+     card's peak); (d) ``--arch qwen3-0.6b --shape train_4k``,
+     ``--arch granite-moe-1b-a400m --shape decode_32k`` and
+     ``--paper-system``, each on both meshes, fake 256- and 512-rank
+     process groups (the first cell as one process a mesh, which run
+     together): every record "ok" with FLOPs, collective bytes and a
+     bottleneck; each record's trace seconds printed. Every process it
+     starts is stopped; the phase fails past MESH_MAX_S;
   12. prints one JSON line of kernel records (each codec layout as e.g.
      ``gather_dist[int8]``; flash_attention with its launches on the lm
      serve path, on each config of the lm decode phase and its records at
      every attention shape of that phase's prefills, each held against
      the plain version in step 11, and its launches in training (0) and
-     in the trained weights' embed; gather_dist, gather_dist[int8],
+     in the trained weights' embed, and on the mesh (``mesh_launches``:
+     launches, bodies, ``local_map`` calls); gather_dist, gather_dist[int8],
      select_edges, the hop and the prune with their autotune pick and
      default plan's time at each probe) and, last, the device line.
 
@@ -3986,6 +4010,309 @@ def train_phase(torch, dev) -> tuple[dict, bool]:
     return out, ok
 
 
+# -- the mesh phase: the port on a DeviceMesh and the multi-pod dry-run ------
+MESH_ARCH = "qwen3-0.6b"
+MESH_EMBED_N, MESH_EMBED_SEQ = 256, 32
+MESH_TRAIN_B, MESH_TRAIN_S, MESH_TRAIN_STEPS = 16, 1024, 2
+MESH_MIN_COSINE = 0.99999  # embeddings on the 1 x 1 mesh vs meshless
+MESH_LOSS_RTOL = 1e-5      # losses of the same steps on and off the mesh
+MESH_MAX_S = 150.0         # what the phase may add to the smoke
+# launch/dryrun.py's production cells (repro's test cell among them):
+# each cell's processes; the longest cell runs one process a mesh
+MESH_DRYRUNS = {
+    "qwen3-0.6b train_4k": [
+        ["--arch", "qwen3-0.6b", "--shape", "train_4k"],
+        ["--arch", "qwen3-0.6b", "--shape", "train_4k", "--multi-pod"]],
+    "granite-moe-1b-a400m decode_32k": [
+        ["--arch", "granite-moe-1b-a400m", "--shape", "decode_32k",
+         "--both-meshes"]],
+    "paper system": [["--paper-system", "--both-meshes"]],
+}
+
+
+def dryrun_proc(argv):
+    """``python -m repro_torch.launch.dryrun argv`` in a process of its own
+    (a fake process group of its own; no card)."""
+    import subprocess
+
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    return subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *argv],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=ROOT)
+
+
+def dryrun_records(proc, timeout) -> tuple[list, str]:
+    """The JSON records a dry-run process printed, and its error text."""
+    out, err = proc.communicate(timeout=max(timeout, 1.0))
+    recs = [json.loads(line) for line in out.splitlines()
+            if line.startswith("{")]
+    return recs, "" if proc.returncode == 0 else err[-2000:]
+
+
+def _config_overrides(cfg, full) -> list:
+    """``--override`` for the fields where ``cfg`` is not the full config
+    (none on the card; a rehearsal passes a cut config)."""
+    import dataclasses
+
+    diff = {f.name: getattr(cfg, f.name) for f in dataclasses.fields(cfg)
+            if getattr(cfg, f.name) != getattr(full, f.name)}
+    if not diff:
+        return []
+    return ["--override", ",".join(f"{k}={v}" for k, v in diff.items())]
+
+
+def _state_bytes(torch, params, opt) -> tuple[int, int]:
+    from repro_torch.sharding import partitioning as part
+
+    def local(t):
+        return t.to_local() if part.is_dtensor(t) else t
+
+    pb = sum(local(t).nbytes for _, t in part.leaves(params))
+    ob = local(opt.step).nbytes + sum(
+        local(t).nbytes for tree in (opt.mu, opt.nu)
+        for _, t in part.leaves(tree))
+    return pb, ob
+
+
+def _sync(torch, dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def mesh_phase(torch, dev) -> tuple[dict, bool]:
+    """``mesh[qwen3-0.6b 1x1]``: a world-size-1 process group (NCCL on the
+    card) and ``make_local_mesh(1, 1)``; (a) the lm serve leg's seeded
+    model, distributed by ``param_shardings``, embeds MESH_EMBED_N x
+    MESH_EMBED_SEQ tokens on the mesh with every count at 0 (flash through
+    ``local_map``, once per layer, on the wgmma body), against the
+    meshless path; (b) MESH_TRAIN_STEPS train steps at B x S on the mesh
+    against the same steps without it; (c) the dry-run of (b)'s step on a
+    1 x 1 fake mesh, its parameter and AdamW-state bytes against (b)'s
+    real tensors; (d) the production cells of ``launch/dryrun.py`` on both
+    meshes. The dry-runs run as processes on the host while the card
+    works; every one is stopped before the phase returns."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import ARCHS, get_arch
+    from repro_torch.data import TokenPipeline
+    from repro_torch.kernels import ops
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.models.api import Model
+    from repro_torch.sharding import partitioning as part
+    from repro_torch.train.optimizer import AdamWConfig, init_opt_state
+    from repro_torch.train.step import build_train_step
+
+    t_phase = time.perf_counter()
+    gc_collect(torch)
+    cfg = get_arch(MESH_ARCH)
+    tag = f"mesh[{cfg.name} 1x1]"
+    cut = _config_overrides(cfg, ARCHS[cfg.name])
+    procs = {(name, i): dryrun_proc(argv)
+             for name, argvs in MESH_DRYRUNS.items()
+             for i, argv in enumerate(argvs)}
+    procs["1x1", 0] = dryrun_proc(
+        ["--arch", cfg.name, "--shape", "train_4k", "--mesh", "1x1",
+         "--batch", str(MESH_TRAIN_B), "--seq", str(MESH_TRAIN_S)] + cut)
+    out, checks = {}, {}
+    try:
+        dist.init_process_group(
+            "nccl" if dev.type == "cuda" else "gloo",
+            store=dist.HashStore(), rank=0, world_size=1)
+        mesh = make_local_mesh(1, 1, device=dev)
+
+        # (a) the embed path on the mesh, every count at 0 just before it
+        model = Model(cfg)
+        params = model.init(torch.Generator(device=dev).manual_seed(0),
+                            device=dev)
+        toks = np.random.default_rng(41).integers(
+            0, cfg.vocab, (MESH_EMBED_N, MESH_EMBED_SEQ))
+        model.embed(params, toks)   # warm: the first call's set-up
+        _sync(torch, dev)
+        t0 = time.perf_counter()
+        plain = model.embed(params, toks)
+        _sync(torch, dev)
+        plain_s = time.perf_counter() - t0
+        with part.use_global_mesh(mesh):
+            dparams = part.shard_tree(params, model.param_specs(mesh), mesh)
+            dtoks = part.shard_tensor(torch.as_tensor(toks, device=dev),
+                                      mesh, ("data", None))
+            model.embed(dparams, dtoks)
+            _sync(torch, dev)
+            ops.reset_launch_counts()
+            t0 = time.perf_counter()
+            emb = model.embed(dparams, dtoks)
+            _sync(torch, dev)
+            mesh_s = time.perf_counter() - t0
+            counts = ops.launch_counts()
+            bodies = {k: v for k, v in {**ops.body_counts(),
+                                        **ops.loader_counts()}.items()
+                      if k.startswith("flash_attention")}
+            calls = dict(ops.MESH_CALLS)
+            emb = emb.full_tensor()
+        cos = row_cosine(torch, emb, plain)
+        diff = float((emb - plain).abs().max())
+        del dparams, params, plain
+        out["embed"] = {
+            "items": MESH_EMBED_N, "seq": MESH_EMBED_SEQ,
+            "placements_of_embed_table": str(part.placements(
+                model.param_specs(mesh)["embed"]["table"], mesh)),
+            "flash_launches": counts["flash_attention"],
+            "flash_bodies": bodies, "local_map_calls": calls,
+            "min_row_cosine": cos, "max_abs_diff": diff,
+            "s_mesh": round(mesh_s, 4), "s_meshless": round(plain_s, 4)}
+        n = cfg.n_layers
+        checks.update({
+            f"embed: {n} flash launches, one per layer, through local_map":
+                counts["flash_attention"] == n
+                and calls["flash_attention"] == n,
+            "embed: every flash launch on the wgmma body":
+                bodies.get("flash_attention[wgmma]", 0) == n,
+            f"embed: least row cosine >= {MESH_MIN_COSINE}":
+                cos >= MESH_MIN_COSINE and bool(torch.isfinite(emb).all()),
+        })
+        print(f"{tag} embed: {json.dumps(out['embed'])}", flush=True)
+        del emb
+        gc_collect(torch)
+
+        # (b) the same train steps without the mesh and on it
+        tcfg = dataclasses.replace(cfg, attention_impl="torch")
+        tmodel = Model(tcfg)
+        batch = TokenPipeline(cfg.vocab, batch=MESH_TRAIN_B,
+                              seq=MESH_TRAIN_S, seed=0).next_batch(
+                                  device=dev)
+        step = build_train_step(tmodel, AdamWConfig(
+            lr=3e-3, warmup_steps=2, total_steps=10))
+
+        def steps(params, opt, batch):
+            losses, secs = [], []
+            for _ in range(MESH_TRAIN_STEPS):
+                _sync(torch, dev)
+                t0 = time.perf_counter()
+                params, opt, m = step(params, opt, batch)
+                loss = m["loss"]
+                loss = float(loss.full_tensor() if part.is_dtensor(loss)
+                             else loss)
+                secs.append(time.perf_counter() - t0)
+                losses.append(loss)
+            return losses, secs
+
+        legs = {}
+        # the atomics of a backward (the embedding's scatter) are made
+        # deterministic for both legs, so what differs is the mesh
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            for leg in ("meshless", "mesh"):
+                params = tmodel.init(
+                    torch.Generator(device=dev).manual_seed(0), device=dev)
+                if dev.type == "cuda":
+                    torch.cuda.reset_peak_memory_stats(dev)
+                if leg == "mesh":
+                    with part.use_global_mesh(mesh):
+                        params = part.shard_tree(
+                            params, tmodel.param_specs(mesh), mesh)
+                        b = {k: part.shard_tensor(v, mesh, ("data", None))
+                             for k, v in batch.items()}
+                        opt = init_opt_state(params)
+                        losses, secs = steps(params, opt, b)
+                else:
+                    opt = init_opt_state(params)
+                    losses, secs = steps(params, opt, batch)
+                pb, ob = _state_bytes(torch, params, opt)
+                peak = torch.cuda.max_memory_allocated(dev) \
+                    if dev.type == "cuda" else 0
+                legs[leg] = {"loss": losses,
+                             "s_per_step": [round(x, 4) for x in secs],
+                             "param_bytes": pb, "opt_state_bytes": ob,
+                             "peak_device_bytes": peak}
+                del params, opt
+                gc_collect(torch)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        rel = max(abs(a - b) / abs(b) for a, b in
+                  zip(legs["mesh"]["loss"], legs["meshless"]["loss"]))
+        out["train"] = {"B": MESH_TRAIN_B, "S": MESH_TRAIN_S, **legs,
+                        "loss_max_rel_diff": rel}
+        checks.update({
+            f"train: losses within {MESH_LOSS_RTOL} relative":
+                rel <= MESH_LOSS_RTOL and all(
+                    math.isfinite(x) for x in legs["mesh"]["loss"]),
+            "train: the same state bytes on and off the mesh":
+                (legs["mesh"]["param_bytes"], legs["mesh"]["opt_state_bytes"])
+                == (legs["meshless"]["param_bytes"],
+                    legs["meshless"]["opt_state_bytes"]),
+        })
+        print(f"{tag} train: {json.dumps(out['train'])}", flush=True)
+    except BaseException:
+        for proc in procs.values():
+            proc.kill()
+            proc.wait()
+        raise
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    recs, errs = {}, {}
+    for (name, _), proc in procs.items():
+        try:
+            got, err = dryrun_records(
+                proc, t_phase + MESH_MAX_S - time.perf_counter())
+        except Exception as e:  # noqa: BLE001 -- a timeout: report it
+            got, err = [], f"{type(e).__name__}: {e}"
+        recs.setdefault(name, []).extend(got)
+        errs[name] = (errs.get(name, "") + " " + err).strip()
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+    # (c) the dry-run of (b)'s step against the card's tensors
+    one = (recs["1x1"] or [{}])[0]
+    out["dryrun_1x1"] = {k: one.get(k) for k in (
+        "status", "compile_s", "param_bytes", "opt_state_bytes",
+        "bytes_per_device", "hlo_gflops", "cut")}
+    out["dryrun_1x1"]["card_peak_device_bytes"] = \
+        legs["mesh"]["peak_device_bytes"]
+    checks["dry-run 1x1: parameter and AdamW-state bytes of the card's"] = (
+        one.get("status") == "ok"
+        and one.get("param_bytes") == legs["mesh"]["param_bytes"]
+        and one.get("opt_state_bytes") == legs["mesh"]["opt_state_bytes"])
+    print(f"{tag} dryrun 1x1: {json.dumps(out['dryrun_1x1'])}"
+          + (f" error: {errs['1x1']}" if errs["1x1"] else ""), flush=True)
+
+    # (d) the production cells
+    for name in MESH_DRYRUNS:
+        rs = recs[name]
+        for r in rs:
+            keep = {k: r.get(k) for k in (
+                "mesh", "status", "compile_s", "bytes_per_device",
+                "microbatches", "hlo_gflops", "hlo_gbytes", "t_compute",
+                "t_memory", "t_collective", "bottleneck", "useful_flop_frac",
+                "replicated")}
+            keep["collectives_total"] = r.get("collectives", {}).get("total")
+            print(f"{tag} dryrun[{name}, {r.get('mesh')}]: "
+                  f"{json.dumps(keep)}", flush=True)
+        out[f"dryrun {name}"] = rs
+        checks[f"dryrun {name}: both meshes ok, FLOPs, collectives, a "
+               "bottleneck"] = (
+            not errs[name]
+            and sorted(r.get("mesh") for r in rs) == ["16x16", "2x16x16"]
+            and all(r.get("status") == "ok" and r.get("hlo_gflops", 0) > 0
+                    and r.get("collectives", {}).get("total", 0) > 0
+                    and r.get("bottleneck") in ("compute", "memory",
+                                                "collective") for r in rs))
+        if errs[name]:
+            print(f"{tag} dryrun[{name}] error: {errs[name]}", flush=True)
+    phase_s = time.perf_counter() - t_phase
+    checks[f"phase inside {MESH_MAX_S:.0f} s"] = phase_s <= MESH_MAX_S
+    failed = [k for k, good in checks.items() if not good]
+    if failed:
+        print(f"{tag}: failed {failed}", flush=True)
+    print(f"phase[mesh]: {phase_s:.1f} s (budget {MESH_MAX_S:.0f} s)",
+          flush=True)
+    return out, not failed
+
+
 def run(args):
     import torch
 
@@ -4615,6 +4942,13 @@ def run(args):
         "embed_bodies": a["embed_flash_bodies"],
         "families_training": {name: rec["flash_launches"] for name, rec
                               in trained.items() if name != TRAIN_ARCH}}
+    # -- the mesh half: the embed and train paths on a 1 x 1 DeviceMesh,
+    # the dry-run on fake 256- and 512-rank process groups ----------------
+    meshed, good = mesh_phase(torch, dev)
+    ok &= good
+    flash_entry["mesh_launches"] = {
+        k: meshed["embed"][k] for k in ("flash_launches", "flash_bodies",
+                                        "local_map_calls")}
     for name in FLASH_PATH_SHAPES:
         flash_entry[f"at_{name.replace(' ', '_')}"] = {
             k: flash[name][k] for k in ("shape", "ms", "plain_ms", "bound_ms",

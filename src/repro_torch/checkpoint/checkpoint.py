@@ -27,8 +27,11 @@ with the hash, the adler32 and the write on three threads and no
 compressor in the way; reads map the file and copy the stored blocks out
 without zlib. ``restore`` places each leaf on the
 device of the template's leaf (or on ``device``), with the template's
-``requires_grad``; ``latest_step`` scans the directory so a crashed run
-resumes without a side database.
+``requires_grad``, and a leaf whose template is a DTensor goes back onto
+its mesh. A DTensor leaf is saved whole (``full_tensor()``), so a
+checkpoint written on a mesh is the file written without one; in a
+process group of several ranks rank 0 writes it. ``latest_step`` scans
+the directory so a crashed run resumes without a side database.
 """
 from __future__ import annotations
 
@@ -46,6 +49,7 @@ import torch
 
 from repro_torch import compressio
 from repro_torch.core import msgpack_lite
+from repro_torch.sharding import partitioning as part
 
 __all__ = ["save", "restore", "latest_step", "gc_old", "tree_flatten",
            "tree_unflatten"]
@@ -201,11 +205,15 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
     to the host while the earlier ones are hashed, checksummed (adler32)
     and written on three threads, and the digest goes into its place at
     the end. Otherwise two passes: hash, then compress and write."""
+    tree = part.full_tree(tree)     # a DTensor leaf is saved whole
+    final = os.path.join(ckpt_dir, f"step_{step}.ckpt")
+    if _rank() != 0:                # rank 0 of a process group writes
+        _barrier()
+        return final
     os.makedirs(ckpt_dir, exist_ok=True)
     items = _payload(tree, step, extra)
     total = sum(len(it) if isinstance(it, bytes) else it[0]
                 for it in items)
-    final = os.path.join(ckpt_dir, f"step_{step}.ckpt")
     tmp = final + ".tmp"
     if compressio.level_of(None) == 0 and compressio.codec() == "zlib":
         _write_stored(tmp, items, total)
@@ -213,7 +221,21 @@ def save(ckpt_dir: str, step: int, tree, *, keep: int = 3,
         _write_compressed(tmp, items, total)
     os.replace(tmp, final)
     gc_old(ckpt_dir, keep=keep)
+    _barrier()
     return final
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _barrier() -> None:
+    """Every rank of a process group of more than one waits here, so no
+    rank reads a checkpoint before rank 0 has written it."""
+    import torch.distributed as dist
+    if dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _write_compressed(path, items, total) -> None:
@@ -392,6 +414,8 @@ def _place(stored, leaves_t, device) -> list:
         if meta["dtype"] == "bfloat16":
             t = t.view(torch.bfloat16)
         t = t.to(dev) if dev.type != "cpu" else t.clone()
+        if part.is_dtensor(tmpl):   # back onto the template's mesh
+            t = part.shard_like(t, tmpl)
         if isinstance(tmpl, torch.Tensor) and tmpl.requires_grad and \
                 t.is_floating_point():
             t.requires_grad_(True)

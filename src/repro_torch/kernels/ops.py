@@ -79,6 +79,7 @@ from repro_torch.kernels import gather_distance as _gather
 from repro_torch.kernels import hop as _hop
 from repro_torch.kernels import prune as _prune
 from repro_torch.kernels import ref as _ref
+from repro_torch.sharding import partitioning as _part
 
 __all__ = [
     "pairwise_dist", "gather_dist", "select_edges", "prune", "hop",
@@ -96,6 +97,9 @@ KERNELS = {
     "prune": _prune.prune_cuda,
     "flash_attention": _flash.flash_attention_cuda,
 }
+# calls that ran an op on each rank's shards through ``local_map`` (a
+# count of calls, not of launches)
+MESH_CALLS = {"flash_attention": 0}
 
 
 def launch_counts() -> dict[str, int]:
@@ -121,6 +125,7 @@ def loader_counts() -> dict[str, int]:
 
 
 def reset_launch_counts() -> None:
+    MESH_CALLS.update(dict.fromkeys(MESH_CALLS, 0))
     for fn in KERNELS.values():
         fn.launches = 0
         for attr in ("layout_launches", "body_launches", "loader_launches",
@@ -331,6 +336,10 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     or >= 1."""
     if window is not None and int(window) < 1:
         raise ValueError(f"window must be None or >= 1, got {window}")
+    if _part.is_dtensor(q):
+        return _flash_on_mesh(q, k, v, causal=causal, window=window,
+                              softcap=softcap, scale=scale,
+                              q_offset=q_offset, impl=impl)
     if resolve_impl("flash_attention", impl, q, "flash") == "torch":
         return _ref.attention(q, k, v, causal=causal, window=window,
                               softcap=softcap, scale=scale,
@@ -338,3 +347,65 @@ def flash_attention(q, k, v, *, causal=True, window=None, softcap=None,
     return _flash.flash_attention_cuda(
         q, k, v, causal=causal, window=window, softcap=softcap, scale=scale,
         q_offset=q_offset)
+
+
+def _flash_on_mesh(q, k, v, *, impl, **kw):
+    """Flash attention on DTensors: each rank runs :func:`flash_attention`
+    (the kernel on the card) on its local batch and heads, through
+    ``local_map``. A mesh dim may shard the batch (dim 0) of q, k and v
+    alike, or the heads (dim 1): q's and k/v's together, or q's alone with
+    k/v replicated there, when each rank takes the KV heads its query
+    heads read. Any other placement raises: the kernel never sees a
+    sequence or head-dim shard, and nothing is gathered for it."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    qp, kp = tuple(q.placements), tuple(k.placements)
+    if tuple(v.placements) != kp:
+        raise ValueError(f"flash on a mesh: k {kp} and v {v.placements} "
+                         "differ")
+    slice_dims = []
+    for i, (a, b) in enumerate(zip(qp, kp)):
+        for p in (a, b):
+            if not isinstance(p, (Shard, Replicate)) or (
+                    isinstance(p, Shard) and p.dim not in (0, 1)):
+                raise ValueError(f"flash on a mesh: placements q {qp}, "
+                                 f"k {kp}: only the batch and the heads "
+                                 "may be sharded")
+        if a == b:
+            continue
+        if a == Shard(1) and b == Replicate():
+            slice_dims.append(i)
+            continue
+        raise ValueError(f"flash on a mesh: q {qp} and k {kp} differ on "
+                         f"mesh dim {i}")
+    if len(slice_dims) > 1:
+        raise ValueError(f"flash on a mesh: q's heads on mesh dims "
+                         f"{slice_dims} with k/v replicated")
+
+    for i, pl in enumerate(qp):
+        if pl == Replicate() and mesh.size(i) > 1:
+            _part.note_replicated(
+                f"flash attention: batch and heads whole on mesh dim {i}")
+
+    def local(ql, kl, vl):
+        if slice_dims:
+            i = slice_dims[0]
+            r, hq_l = mesh.get_local_rank(i), ql.shape[1]
+            g = hq_l * mesh.size(i) // kl.shape[1]
+            if hq_l % g and g % hq_l:
+                raise ValueError(f"flash on a mesh: {hq_l} query heads a "
+                                 f"rank do not map onto GQA groups of {g}")
+            lo, hi = r * hq_l // g, ((r + 1) * hq_l - 1) // g + 1
+            kl, vl = kl[:, lo:hi], vl[:, lo:hi]
+        MESH_CALLS["flash_attention"] += 1
+        return flash_attention(ql, kl, vl, impl=impl, **kw)
+
+    # a list is one output's (or input's) placements; a tuple holds many.
+    # K/V replicated where q's heads split get a partial gradient there.
+    kg = [Partial() if i in slice_dims else pl for i, pl in enumerate(kp)]
+    return local_map(local, out_placements=list(qp),
+                     in_placements=(list(qp), list(kp), list(kp)),
+                     in_grad_placements=(list(qp), kg, kg),
+                     device_mesh=mesh)(q, k, v)

@@ -74,6 +74,18 @@ class Model:
         return part.init_params(self.defs(), generator,
                                 getattr(torch, self.cfg.param_dtype))
 
+    def abstract(self, mesh=None):
+        """The parameter tree as fake tensors in ``cfg.param_dtype`` (no
+        memory; ``partitioning.abstract_params``), DTensors on ``mesh``."""
+        return part.abstract_params(
+            self.defs(), getattr(torch, self.cfg.param_dtype), mesh)
+
+    def param_specs(self, mesh):
+        return part.param_specs(self.defs(), mesh)
+
+    def param_shardings(self, mesh):
+        return part.named_shardings(self.defs(), mesh)
+
     def loss(self, params, batch):
         """Differentiable next-token loss of ``batch`` {"tokens",
         "targets"} int [B, S] (and "frames" f32 [B, S_enc, d] for the
@@ -119,12 +131,20 @@ class Model:
     def init_cache(self, batch, max_len, *, enc_len=None, device=None):
         """A zero decode cache of ``max_len`` positions on ``device`` (the
         card unless ``device="cpu"``); ``enc_len``: the encoder-decoder's
-        cross-cache length (default ``max_len``, as ``repro``'s)."""
+        cross-cache length (default ``max_len``, as ``repro``'s).
+        ``launch/specs.py::cache_shardings`` lays a cache out on a mesh."""
         dev = resolve_device(device)
         if self.is_encdec:
             return encdec.init_cache(self.cfg, batch, max_len, enc_len,
                                      device=dev)
         return transformer.init_cache(self.cfg, batch, max_len, device=dev)
+
+    def cache_specs(self, batch, max_len, *, enc_len=None):
+        """The decode cache's leaves as :class:`BatchSpec`s (no memory)."""
+        cache = self.init_cache(batch, max_len, enc_len=enc_len,
+                                device="meta")
+        return part.map_tree(lambda t: BatchSpec(tuple(t.shape), t.dtype),
+                             cache)
 
     def grow_cache(self, caches, max_len):
         """The decode cache of ``max_len`` positions that continues a

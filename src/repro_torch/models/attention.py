@@ -21,7 +21,9 @@ import torch
 
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
-from repro_torch.sharding.partitioning import ParamDef
+from repro_torch.sharding import partitioning as part
+from repro_torch.sharding.partitioning import ParamDef, constrain, \
+    is_dtensor
 
 __all__ = ["attn_defs", "attention", "cross_kv", "init_kv_cache",
            "decode_attention"]
@@ -41,20 +43,45 @@ def attn_defs(cfg):
     return defs
 
 
+def _heads_proj(x, w):
+    """x [B, S, d] @ w [d, H, Dh] -> [B, S, H, Dh]; on a mesh as
+    ``partitioning.local_linear`` on the flattened [d, H * Dh] weight (H
+    splits over model where it divides, else H * Dh stays whole)."""
+    if not is_dtensor(w):
+        return torch.einsum("bsd,dhk->bshk", x, w)
+    B, S, _ = x.shape
+    H, Dh = w.shape[1], w.shape[2]
+    out = part.local_linear(x, w.reshape(w.shape[0], H * Dh))
+    return out.reshape(B, S, H, Dh)
+
+
+def _out_proj(out, w):
+    """out [B, S, H, Dh] @ w [H, Dh, d] -> [B, S, d]; on a mesh as
+    ``partitioning.local_linear`` (row-parallel where H splits)."""
+    if not is_dtensor(w):
+        return torch.einsum("bshk,hkd->bsd", out, w)
+    B, S, H, Dh = out.shape
+    return part.local_linear(out.reshape(B, S, H * Dh),
+                             w.reshape(H * Dh, w.shape[2]))
+
+
 def _project_qkv(p, cfg, x, positions):
     """x [B, S, d] -> q [B, Hq, S, Dh], k / v [B, Hkv, S, Dh] (views of
     the [B, S, H, Dh] products: the kernel takes any batch, head and
     position strides)."""
     ct = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(ct))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(ct))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(ct))
+    q = _heads_proj(x, p["wq"].to(ct))
+    k = _heads_proj(x, p["wk"].to(ct))
+    v = _heads_proj(x, p["wv"].to(ct))
     if cfg.qk_norm:
         q = L.rms_norm(p["q_norm"], q)
         k = L.rms_norm(p["k_norm"], k)
     q = L.rope(q, positions, cfg.rope_theta)
     k = L.rope(k, positions, cfg.rope_theta)
-    return q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    q = constrain(q.transpose(1, 2), "batch", "act_heads", "seq", None)
+    k = constrain(k.transpose(1, 2), "batch", "act_heads", "seq", None)
+    v = constrain(v.transpose(1, 2), "batch", "act_heads", "seq", None)
+    return q, k, v
 
 
 def attention(p, cfg, x, positions, *, window=None, causal=True, kv=None):
@@ -66,7 +93,7 @@ def attention(p, cfg, x, positions, *, window=None, causal=True, kv=None):
     if kv is None:
         q, k, v = _project_qkv(p, cfg, x, positions)
     else:
-        q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(x.dtype))
+        q = _heads_proj(x, p["wq"].to(x.dtype))
         if cfg.qk_norm:
             q = L.rms_norm(p["q_norm"], q)
         q = q.transpose(1, 2)
@@ -76,7 +103,8 @@ def attention(p, cfg, x, positions, *, window=None, causal=True, kv=None):
         impl=cfg.attention_impl,
     )
     out = out.transpose(1, 2)                       # [B, S, H, Dh]
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype)), (k, v)
+    out = _out_proj(out, p["wo"].to(x.dtype))
+    return constrain(out, "batch", "seq", "act_embed"), (k, v)
 
 
 def cross_kv(p, cfg, enc_out):
@@ -84,8 +112,8 @@ def cross_kv(p, cfg, enc_out):
     contiguous [B, Hkv, S_enc, Dh] each, computed once per request and
     kept as the decoder's static cross cache."""
     ct = enc_out.dtype
-    k = torch.einsum("bsd,dhk->bshk", enc_out, p["wk"].to(ct))
-    v = torch.einsum("bsd,dhk->bshk", enc_out, p["wv"].to(ct))
+    k = _heads_proj(enc_out, p["wk"].to(ct))
+    v = _heads_proj(enc_out, p["wv"].to(ct))
     return (k.transpose(1, 2).contiguous(), v.transpose(1, 2).contiguous())
 
 
@@ -105,13 +133,15 @@ def decode_attention(p, cfg, x, cache, pos, *, window=None, update=True):
     at ``pos`` in place; keys past ``pos`` (and, with ``window``, at or
     before ``pos - window``) are masked. ``update=False``
     (cross-attention): the cache is static, q gets no RoPE and every key
-    is seen. The softmax over the whole cache runs in f32."""
+    is seen. The softmax over the whole cache runs in f32. A cache of
+    DTensors goes through :func:`_decode_on_mesh`."""
     ct = x.dtype
     pos = int(pos)
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(ct))
+    q = _heads_proj(x, p["wq"].to(ct))
+    k_new = v_new = None
     if update:
-        k_new = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(ct))
-        v_new = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(ct))
+        k_new = _heads_proj(x, p["wk"].to(ct))
+        v_new = _heads_proj(x, p["wv"].to(ct))
     if cfg.qk_norm:
         q = L.rms_norm(p["q_norm"], q)
         if update:
@@ -120,22 +150,104 @@ def decode_attention(p, cfg, x, cache, pos, *, window=None, update=True):
         posv = torch.full((1,), pos, dtype=torch.long, device=x.device)
         q = L.rope(q, posv, cfg.rope_theta)
         k_new = L.rope(k_new, posv, cfg.rope_theta)
-        cache["k"][:, :, pos] = k_new[:, 0]
-        cache["v"][:, :, pos] = v_new[:, 0]
-    k, v = cache["k"], cache["v"]
+    if is_dtensor(cache["k"]):
+        out = _decode_on_mesh(cfg, q, k_new, v_new, cache, pos, window)
+    else:
+        if update:
+            cache["k"][:, :, pos] = k_new[:, 0]
+            cache["v"][:, :, pos] = v_new[:, 0]
+        out = _decode_softmax(cfg, q, cache["k"], cache["v"], pos, window,
+                              update)
+    out = _out_proj(out.to(ct), p["wo"].to(ct))
+    return constrain(out, "batch", "seq", "act_embed"), cache
 
-    B = x.shape[0]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
-    qg = (q.float() * (hd ** -0.5)).reshape(B, hkv, hq // hkv, hd)
+
+def _decode_scores(cfg, q, k, pos, window, update, lo=0):
+    """f32 scores [B, Hkv, g, S] of q [B, 1, Hq, Dh] against the cache
+    rows k [B, Hkv, S, Dh] at positions ``lo ..``, masked past ``pos``."""
+    B, hd = q.shape[0], cfg.hd
+    hkv = k.shape[1]
+    qg = (q.float() * (hd ** -0.5)).reshape(B, hkv, q.shape[2] // hkv, hd)
     s = torch.einsum("bhgd,bhsd->bhgs", qg, k.float())
     s = L.softcap(s, cfg.attn_softcap)
     if update:
-        kpos = torch.arange(k.shape[2], device=x.device)
+        kpos = torch.arange(lo, lo + k.shape[2], device=q.device)
         mask = kpos <= pos
         if window is not None:
             mask &= kpos > pos - window
         s = s.masked_fill(~mask, float("-inf"))
+    return s
+
+
+def _decode_softmax(cfg, q, k, v, pos, window, update):
+    """[B, 1, Hq, Dh] f32: the softmax over the whole cache."""
+    s = _decode_scores(cfg, q, k, pos, window, update)
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", w, v.float())
-    out = out.reshape(B, 1, hq, hd).to(ct)             # [B, 1, H, Dh]
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct)), cache
+    return out.reshape(q.shape[0], 1, q.shape[2], cfg.hd)
+
+
+def _decode_on_mesh(cfg, q, k_new, v_new, cache, pos, window):
+    """Decode attention on a DTensor cache [B, Hkv, S, Dh] whose mesh dims
+    shard the batch, the KV heads or the positions (at most one dim).
+    Each rank writes the new row where ``pos`` falls in its positions and
+    scores its rows in a ``local_map`` region; with the positions sharded
+    each rank returns its softmax max, sum and weighted V (the
+    flash-decode pattern) and the ranks' partials are gathered and merged,
+    so no rank holds another's rows. Returns [B, 1, Hq, Dh] f32."""
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    kc, vc = cache["k"], cache["v"]
+    mesh, cp = kc.device_mesh, tuple(kc.placements)
+    update = k_new is not None
+    if tuple(vc.placements) != cp or any(
+            not isinstance(pl, (Shard, Replicate))
+            or (isinstance(pl, Shard) and pl.dim > 2) for pl in cp):
+        raise ValueError(f"decode on a mesh: cache placements k {cp}, "
+                         f"v {tuple(vc.placements)}")
+    seq_dims = [i for i, pl in enumerate(cp) if pl == Shard(2)]
+    for i, pl in enumerate(cp):
+        if pl == Replicate() and mesh.size(i) > 1:
+            part.note_replicated(f"decode attention: the cache whole on "
+                                 f"mesh dim {i}")
+    if len(seq_dims) > 1:
+        raise ValueError(f"decode on a mesh: positions on mesh dims "
+                         f"{seq_dims}")
+    # q, k_new, v_new [B, 1, H, Dh]: the cache's batch and head placements
+    qp = tuple(Shard(0) if pl == Shard(0) else
+               Shard(2) if pl == Shard(1) else Replicate() for pl in cp)
+    q = q.redistribute(mesh, qp)
+    # the partials [1, B, Hkv, g(, Dh)]: one entry per position shard
+    sp = tuple(Shard(0) if pl == Shard(2) else
+               Shard(pl.dim + 1) if isinstance(pl, Shard) else Replicate()
+               for pl in cp)
+
+    def local(ql, kl, vl, *new):
+        lo = mesh.get_local_rank(seq_dims[0]) * kl.shape[2] \
+            if seq_dims else 0
+        if new and lo <= pos < lo + kl.shape[2]:
+            kl[:, :, pos - lo] = new[0][:, 0]
+            vl[:, :, pos - lo] = new[1][:, 0]
+        s = _decode_scores(cfg, ql, kl, pos, window, update, lo)
+        m = s.amax(dim=-1)
+        e = torch.exp(s - torch.where(torch.isinf(m), 0.0, m)[..., None])
+        o = torch.einsum("bhgs,bhsd->bhgd", e, vl.float())
+        return m[None], e.sum(dim=-1)[None], o[None]
+
+    args = (q, kc, vc)
+    in_p = (list(qp), list(cp), list(cp))
+    if update:
+        args += (k_new.redistribute(mesh, qp), v_new.redistribute(mesh, qp))
+        in_p += (list(qp), list(qp))
+    m, l, o = local_map(local, out_placements=(list(sp),) * 3,
+                        in_placements=in_p, device_mesh=mesh)(*args)
+    if seq_dims:
+        rp = tuple(Replicate() if i == seq_dims[0] else pl
+                   for i, pl in enumerate(sp))
+        m, l, o = (t.redistribute(mesh, rp) for t in (m, l, o))
+    top = m.amax(dim=0)
+    w = torch.exp(m - top[None])
+    out = (o * w[..., None]).sum(dim=0) / (l * w).sum(dim=0)[..., None]
+    B = out.shape[0]
+    return out.reshape(B, 1, cfg.n_heads, cfg.hd)

@@ -68,7 +68,7 @@ def encode(params, cfg, frames):
     """frames [B, S_enc, d_model] (the stub frontend's output) -> the
     encoder's hidden states in the compute dtype."""
     ct = getattr(torch, cfg.compute_dtype)
-    x = torch.einsum("bsd,de->bse", frames.to(ct), params["enc_in"].to(ct))
+    x = L.linear(frames.to(ct), params["enc_in"].to(ct))
     positions = torch.arange(frames.shape[1], device=frames.device)
     block = _remat(_enc_block, cfg)
     for i in range(cfg.enc_layers):

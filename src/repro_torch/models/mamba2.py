@@ -20,7 +20,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.sharding.partitioning import ParamDef
+from repro_torch.sharding import partitioning as part
+from repro_torch.sharding.partitioning import ParamDef, constrain, \
+    is_dtensor
 
 __all__ = ["mamba_defs", "mamba_seq", "mamba_decode_step",
            "init_mamba_cache"]
@@ -69,6 +71,12 @@ def _gated_norm(p, x, z, eps=1e-6):
 def mamba_seq(p, cfg, x):
     """Full-sequence (prefill) forward: x [B, S, d] -> (out [B, S, d],
     final state {"conv", "ssm"}), the state seeding decode."""
+    if is_dtensor(x):
+        out, state = part.batch_local(
+            lambda p, x, _: mamba_seq(p, cfg, x), p, x,
+            state_keys=("conv", "ssm"),
+            region="mamba2 mixer: the heads whole on each rank")
+        return constrain(out, "batch", "seq", "act_embed"), state
     B, S, d = x.shape
     d_inner, H, N, P = _dims(cfg)
     Lc = min(cfg.ssm_chunk, S)
@@ -121,7 +129,8 @@ def mamba_seq(p, cfg, x):
 
     y = _gated_norm(p["norm"], y, z)
     out = torch.einsum("bse,ed->bsd", y, p["w_out"].to(ct))
-    return out, {"conv": conv[:, S:], "ssm": h}
+    return constrain(out, "batch", "seq", "act_embed"), \
+        {"conv": conv[:, S:], "ssm": h}
 
 
 def init_mamba_cache(cfg, batch, dtype, *, device):

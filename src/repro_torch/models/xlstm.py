@@ -15,7 +15,9 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models import layers as L
-from repro_torch.sharding.partitioning import ParamDef
+from repro_torch.sharding import partitioning as part
+from repro_torch.sharding.partitioning import ParamDef, constrain, \
+    is_dtensor
 
 __all__ = [
     "mlstm_defs", "mlstm_seq", "mlstm_decode_step", "init_mlstm_cache",
@@ -94,6 +96,12 @@ def _mlstm_chunk(q, k, v, i_p, logf, C_prev, n_prev, m_prev):
 def mlstm_seq(p, cfg, x, chunk=256):
     """Chunkwise stabilised mLSTM: x [B, S, d] -> (out [B, S, d], final
     state {"conv", "c", "n", "m"}); memory O(S * chunk), not O(S^2)."""
+    if is_dtensor(x):
+        out, state = part.batch_local(
+            lambda p, x, _: mlstm_seq(p, cfg, x, chunk), p, x,
+            state_keys=("conv", "c", "n", "m"),
+            region="mLSTM mixer: the heads whole on each rank")
+        return constrain(out, "batch", "seq", "act_embed"), state
     B, S, d = x.shape
     d_inner, H, dh = _mdims(cfg)
     ct = x.dtype
@@ -126,7 +134,8 @@ def mlstm_seq(p, cfg, x, chunk=256):
 
     h = L.rms_norm(p["norm"], h) * F.silu(z)
     out = torch.einsum("bse,ed->bsd", h, p["w_down"].to(ct))
-    return out, {"conv": pad[:, S:], "c": C, "n": n, "m": m}
+    return constrain(out, "batch", "seq", "act_embed"), \
+        {"conv": pad[:, S:], "c": C, "n": n, "m": m}
 
 
 def init_mlstm_cache(cfg, batch, dtype, *, device):
@@ -144,6 +153,10 @@ def init_mlstm_cache(cfg, batch, dtype, *, device):
 def mlstm_decode_step(p, cfg, x, cache):
     """x [B, 1, d] -> (out [B, 1, d], cache), the recurrent form; the
     cache is updated in place."""
+    if is_dtensor(x):
+        return part.batch_local(
+            lambda p, x, c: mlstm_decode_step(p, cfg, x, c), p, x, cache,
+            region="mLSTM decode: the heads whole on each rank")
     B = x.shape[0]
     d_inner, H, dh = _mdims(cfg)
     ct = x.dtype
@@ -220,6 +233,12 @@ def init_slstm_cache(cfg, batch, dtype, *, device):
 def slstm_seq(p, cfg, x):
     """The recurrence over time: x [B, S, d] -> (out [B, S, d], final
     state)."""
+    if is_dtensor(x):
+        out, state = part.batch_local(
+            lambda p, x, _: slstm_seq(p, cfg, x), p, x,
+            state_keys=("c", "h", "m", "n"),
+            region="sLSTM mixer: the features whole on each rank")
+        return constrain(out, "batch", "seq", "act_embed"), state
     B, S, d = x.shape
     ct = x.dtype
     xg = torch.einsum("bsd,dg->bsg", x, p["w_gates"].to(ct))
@@ -230,11 +249,15 @@ def slstm_seq(p, cfg, x):
         hs.append(state["h"])
     h = L.rms_norm(p["norm"], torch.stack(hs, dim=1).to(ct))
     out = torch.einsum("bsd,de->bse", h, p["w_down"].to(ct))
-    return out, state
+    return constrain(out, "batch", "seq", "act_embed"), state
 
 
 def slstm_decode_step(p, cfg, x, cache):
     """x [B, 1, d] -> (out [B, 1, d], cache), updated in place."""
+    if is_dtensor(x):
+        return part.batch_local(
+            lambda p, x, c: slstm_decode_step(p, cfg, x, c), p, x, cache,
+            region="sLSTM decode: the features whole on each rank")
     ct = x.dtype
     xg = torch.einsum("bsd,dg->bsg", x, p["w_gates"].to(ct))
     new = _slstm_cell(p, cfg, xg[:, 0], cache)

@@ -6,7 +6,9 @@ Not ``torch.optim.AdamW``: ``repro`` decays as ``p - lr * (m_hat /
 and the port keeps both. The moments are f32 trees congruent with the
 parameters. :func:`adamw_update` computes every new value first and then
 writes the parameters and moments in place, so an update that fails
-midway leaves them as they were.
+midway leaves them as they were. On DTensor parameters the moments are
+DTensors in the same placements, and the clip's global norm sums each
+rank's shards and reduces across the ranks.
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch.sharding import partitioning as part
 from repro_torch.sharding.partitioning import leaves
 
 __all__ = ["AdamWConfig", "OptState", "init_opt_state", "adamw_update",
@@ -55,8 +58,9 @@ def init_opt_state(params) -> OptState:
     """Zero moments in f32 beside each parameter; step 0 on the
     parameters' device."""
     dev = next(leaves(params))[1].device
+
     def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        return torch.zeros_like(p, dtype=torch.float32)
 
     return OptState(torch.zeros((), dtype=torch.int32, device=dev),
                     _map(zeros, params), _map(zeros, params))
@@ -86,13 +90,18 @@ def global_norm(tree):
     return torch.sqrt(total)
 
 
-@torch.no_grad()
 def adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
     """One AdamW step of ``grads`` (a tree congruent with ``params``) ->
     ``(params, new state, {"grad_norm", "lr"})``. The gradients are
     clipped to global norm ``clip_norm``; the parameters and the moments
     are written in place once every new value is computed, and the same
-    parameter tree is returned."""
+    parameter tree is returned. The step's scalars meet DTensors as
+    replicated values."""
+    with torch.no_grad(), part.replicate_plain():
+        return _adamw_update(cfg, params, grads, state)
+
+
+def _adamw_update(cfg: AdamWConfig, params, grads, state: OptState):
     gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9),
                         max=1.0)

@@ -14,13 +14,20 @@ one microbatch's) and divides by their count, optionally passes them
 through int8 error-feedback compression, and applies AdamW in place:
 the parameter and moment tensors are updated under ``torch.no_grad()``,
 where ``repro`` donates its buffers to a functional update.
+
+On a mesh (DTensor parameters and batch, run inside ``use_global_mesh``)
+a gradient that comes back in other placements than its parameter's --
+``Partial`` over the data axes, or sharded otherwise -- is redistributed
+to the parameter's before AdamW: FSDP's reduce-scatter, and the
+all-reduce of a replicated leaf. Microbatches split each rank's shard of
+the batch.
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.models.api import Model
-from repro_torch.sharding.partitioning import leaves
+from repro_torch.sharding.partitioning import is_dtensor, leaves
 from repro_torch.train import compression
 from repro_torch.train.optimizer import AdamWConfig, adamw_update
 
@@ -38,6 +45,29 @@ def _unflatten(paths, values) -> dict:
     return out
 
 
+def _microbatch(v, i, n):
+    """Slice ``i`` of ``n`` of the batch entry ``v`` (dim 0): of each
+    rank's shard for a DTensor."""
+    if not is_dtensor(v):
+        size = v.shape[0] // n
+        return v[i * size:(i + 1) * size]
+    from torch.distributed.tensor import DTensor
+
+    loc = v.to_local()
+    size = loc.shape[0] // n
+    return DTensor.from_local(loc[i * size:(i + 1) * size], v.device_mesh,
+                              v.placements, run_check=False)
+
+
+def _as_param(g, p):
+    """The gradient ``g`` in its parameter's placements (a plain gradient
+    as it is)."""
+    if g is None or not is_dtensor(g) or \
+            tuple(g.placements) == tuple(p.placements):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
 def loss_and_grads(model: Model, params, batch, *, microbatches: int = 1):
     """(loss, {"nll", "aux"}, grads) of ``batch`` at ``params``: the loss
     the mean over ``microbatches`` equal slices of the batch (dim 0), the
@@ -48,18 +78,19 @@ def loss_and_grads(model: Model, params, batch, *, microbatches: int = 1):
     for p in ps:
         if not p.requires_grad:
             p.requires_grad_(True)
-    n = next(iter(batch.values())).shape[0]
+    first = next(iter(batch.values()))
+    n = (first.to_local() if is_dtensor(first) else first).shape[0]
     if microbatches < 1 or n % microbatches:
         raise ValueError(f"batch of {n} does not split into {microbatches} "
                          "microbatches")
-    size = n // microbatches
     acc, loss_sum = None, 0.0
     for i in range(microbatches):
         mb = batch if microbatches == 1 else {
-            k: v[i * size:(i + 1) * size] for k, v in batch.items()}
+            k: _microbatch(v, i, microbatches) for k, v in batch.items()}
         with torch.enable_grad():
             loss, metrics = model.loss(params, mb)
             gs = torch.autograd.grad(loss, ps, allow_unused=True)
+        gs = [_as_param(g, p) for g, p in zip(gs, ps)]
         if acc is None:
             acc = [None if g is None else g.float() for g in gs]
         else:
@@ -86,7 +117,7 @@ def build_train_step(model: Model, opt_cfg: AdamWConfig, *,
                                               microbatches=microbatches)
         # a leaf the loss does not reach gets a zero gradient, as in repro
         paths, gs = zip(*leaves(grads))
-        gs = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        gs = [torch.zeros_like(p, dtype=torch.float32)
               if g is None else g for (_, p), g in zip(leaves(params), gs)]
         return loss, metrics, _unflatten(paths, gs)
 
@@ -121,9 +152,17 @@ def greedy(cfg, logits):
     vocab tail masked, so every id lies in ``[0, vocab)``; ties go to the
     lower id."""
     if cfg.padded_vocab != cfg.vocab:
-        logits = logits.masked_fill(
-            torch.arange(logits.shape[-1], device=logits.device)
-            >= cfg.vocab, float("-inf"))
+        tail = torch.arange(logits.shape[-1], device=logits.device) \
+            >= cfg.vocab
+        logits = torch.where(tail, torch.full((), float("-inf"),
+                                              dtype=logits.dtype,
+                                              device=logits.device), logits)
+    if is_dtensor(logits):  # the vocab whole on each rank, rows split
+        from torch.distributed.tensor import Replicate, Shard
+
+        logits = logits.redistribute(logits.device_mesh, [
+            Replicate() if pl == Shard(1) or pl.is_partial() else pl
+            for pl in logits.placements])
     return logits.argmax(dim=-1).to(torch.int32)[:, None]
 
 

@@ -592,7 +592,7 @@ R6_ENTRY_POINTS = (
     "repro_torch.serve.engine", "repro_torch.serve.loop",
     "repro_torch.serve.executor", "repro_torch.kernels.ops",
     "repro_torch.compressio", "repro_torch.launch.serve",
-    "repro_torch.launch.train")
+    "repro_torch.launch.train", "repro_torch.launch.dryrun")
 
 
 def _module_map(src_dir: pathlib.Path) -> dict[str, pathlib.Path]:

@@ -41,6 +41,9 @@ TO_PORT = {"pallas": "cuda", "xla": "torch"}
 # knob takes "legacy" too (its hop maps it to composed, ops.py:260-275),
 # and says so only in its footer
 EXTRA_TOKENS = {"RTORCH_IMPL": {"legacy"}}
+# REPRO_DRYRUN_DEVICES sets XLA's host device count before JAX starts; the
+# port's dry-run opens a fake process group of its mesh's own size, so
+# nothing there needs a cap
 COUNTERPARTS = [k.name for k in rknobs.REGISTRY
                 if k.name != "REPRO_DRYRUN_DEVICES"]
 
